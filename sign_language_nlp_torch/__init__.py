@@ -4,26 +4,31 @@ A second package beside the JAX one, for an NVIDIA H100. The JAX package
 is the reference: each slice of the port is held against it on the same
 inputs and weights (tests/test_torch_*.py). Every TPU kernel on a ported
 path is rewritten by hand for Hopper (csrc/), with a plain PyTorch version
-beside it.
+beside it. The port imports nothing of the JAX package: what it needs of
+the framework-free layers (data, utils, the k-fold splitter) it keeps as
+its own copies (tests/test_torch_isolation.py shows it).
 
 Ported so far: the transformer serving path,
-``python -m sign_language_nlp_torch.predict``, with the fused attention
-forward as a CUDA kernel. The framework-free layers (data, utils) are
-imported from sign_language_nlp_tpu, whose data and utils modules import
-no jax.
+``python -m sign_language_nlp_torch.predict``, and the population
+trainer, ``training.engine.PopulationTrainer.fit``, with the fused
+attention forward (with and without dropout) and backward as CUDA
+kernels.
 
 Layout:
-  data.py    — the data layer shared with the JAX package
-  ops/       — attention dispatch; the fused kernel's wrapper and its
-               plain version
+  data/      — corpus building, vocabularies, static-shape datasets
+  utils/     — logging and filesystem helpers
+  ops/       — attention dispatch; the fused kernels' wrappers, autograd
+               function and plain versions; dropout, losses, metrics
   csrc/      — hand-written CUDA C++ for sm_90a
   kernels/   — nvcc build at first use, ctypes binding
-  models/    — Transformer (eval), initialisers, registry, flax→torch
-               weight conversion
-  training/  — checkpoint format (params.pt + params.json)
+  models/    — Transformer, initialisers, registry, flax→torch weight
+               conversion
+  training/  — the population trainer, optimizers, monitor (plateau,
+               early stopping, best params), checkpoint format
+  search/    — the stratified k-fold and monitor splits
   predict.py — the serving CLI
 
 Importing the package imports nothing heavy; this module is docs only.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

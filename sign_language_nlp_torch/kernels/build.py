@@ -5,14 +5,16 @@ interface. It is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library at first use and loaded with ``ctypes``; nothing includes
 PyTorch's headers, so a build takes seconds. Libraries go to
 ``sign_language_nlp_torch/kernels/build/`` (git-ignored), named by a
-hash of the source and the flags, so an edited source is never served
-from a stale build. The compiler's output (``-Xptxas -v``: registers,
+hash of the source, the headers beside it (``csrc/*.cuh``) and the
+flags, so an edited source or header is never served from a stale
+build. The compiler's output (``-Xptxas -v``: registers,
 shared memory, spills) is kept beside each library as ``<name>.log``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -50,11 +52,13 @@ class Built(NamedTuple):
 
 
 def build(source: str) -> Built:
-    """Compile `csrc/<source>` unless a library of the same source and
-    flags exists."""
+    """Compile `csrc/<source>` unless a library of the same source,
+    headers and flags exists."""
     src = os.path.join(CSRC_DIR, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = f"{os.path.splitext(source)[0]}_{digest.hexdigest()[:12]}"
     lib = os.path.join(BUILD_DIR, f"lib{stem}.so")
     log = os.path.join(BUILD_DIR, f"{stem}.log")
@@ -75,15 +79,37 @@ def build(source: str) -> Built:
     return Built(lib, log, seconds)
 
 
-@functools.lru_cache(maxsize=None)
-def fused_attention_library() -> ctypes.CDLL:
-    """The fused attention forward (csrc/fused_attention_fwd.cu), built
-    on first call and loaded once per process."""
-    lib = ctypes.CDLL(build("fused_attention_fwd.cu").library)
-    fn = lib.slt_fused_attention_fwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
+SOURCES = ("fused_attention_fwd.cu", "fused_attention_bwd.cu")
+
+
+def _load(source: str, fn_name: str, argtypes: list) -> ctypes.CDLL:
+    lib = ctypes.CDLL(build(source).library)
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     lib.slt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.slt_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def fused_attention_library() -> ctypes.CDLL:
+    """K1, the fused attention forward (csrc/fused_attention_fwd.cu),
+    built on first call and loaded once per process. Arguments: q, k, v,
+    bias, o, stats, seeds (pointers), rate, B, Sq, Sk, E, H, scale,
+    stream."""
+    return _load("fused_attention_fwd.cu", "slt_fused_attention_fwd_f32",
+                 [_P] * 7 + [_F] + [_I] * 5 + [_F, _P])
+
+
+@functools.lru_cache(maxsize=None)
+def fused_attention_bwd_library() -> ctypes.CDLL:
+    """K2, the fused attention backward (csrc/fused_attention_bwd.cu),
+    built on first call and loaded once per process. Arguments: q, k, v,
+    bias, dout, stats, seeds (pointers), rate, dq, dk, dv, delta
+    (pointers), B, Sq, Sk, E, H, scale, stream."""
+    return _load("fused_attention_bwd.cu", "slt_fused_attention_bwd_f32",
+                 [_P] * 7 + [_F] + [_P] * 4 + [_I] * 5 + [_F, _P])

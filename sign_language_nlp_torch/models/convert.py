@@ -6,8 +6,11 @@ the port itself never imports jax or flax. It handles:
 
   * Dense `kernel` [in, out] → Linear `weight` [out, in];
   * LayerNorm `scale` → `weight`, Embed `embedding` → `weight`;
-  * an optional leading population axis [1, ...], as in the checkpoints
-    the JAX pipeline writes (sign_language_nlp_tpu/predict.py:49-52);
+  * a leading population axis [P, ...]: `params_from_jax_population`
+    gives one state dict per cell (the JAX trainer's stacked params);
+    `params_from_jax` takes a single cell, with or without an axis of
+    size 1, as in the checkpoints the JAX pipeline writes
+    (sign_language_nlp_tpu/predict.py:49-52);
   * a `scan_layers` tree (`encoder_layers/layer/...` stacked [L, ...]),
     unstacked into one entry per layer;
   * flax's `encoder_layer_{i}` naming, which becomes `encoder_layers.{i}`.
@@ -47,20 +50,40 @@ def _leaf(path: tuple, array: np.ndarray) -> tuple[str, torch.Tensor]:
         np.array(array, dtype=np.float32, order="C", copy=True))
 
 
+def params_from_jax_population(tree: Mapping
+                               ) -> list[dict[str, torch.Tensor]]:
+    """Population-stacked flax Transformer params ([P, ...] leaves,
+    optionally under a top-level "params" key, unrolled or scanned
+    layers) → one state dict of the port's Transformer per cell."""
+    if "params" in tree:
+        tree = tree["params"]
+    flat = _flatten(tree)
+    if flat[("src_embedding", "embedding")].ndim != 3:
+        raise ValueError("no population axis: use params_from_jax")
+    sizes = {a.shape[0] for a in flat.values()}
+    if len(sizes) != 1:
+        raise ValueError(f"population axes of sizes {sorted(sizes)}")
+    return [_state_dict({p: a[c] for p, a in flat.items()})
+            for c in range(sizes.pop())]
+
+
 def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
-    """Flax Transformer params (optionally under a top-level "params"
-    key, with or without a leading population axis of size 1, unrolled
-    or scanned layers) → the port Transformer's state dict."""
+    """Flax Transformer params of one cell (optionally under a top-level
+    "params" key, with or without a leading population axis of size 1,
+    unrolled or scanned layers) → the port Transformer's state dict."""
     if "params" in tree:
         tree = tree["params"]
     flat = _flatten(tree)
     if flat[("src_embedding", "embedding")].ndim == 3:  # population axis
-        sizes = {a.shape[0] for a in flat.values()}
-        if sizes != {1}:
-            raise ValueError(f"population axis of sizes {sorted(sizes)}; "
-                             "pass a single cell's params")
-        flat = {p: a[0] for p, a in flat.items()}
+        cells = params_from_jax_population(tree)
+        if len(cells) != 1:
+            raise ValueError(f"population of {len(cells)} cells; use "
+                             "params_from_jax_population")
+        return cells[0]
+    return _state_dict(flat)
 
+
+def _state_dict(flat: dict) -> dict[str, torch.Tensor]:
     state = {}
     for path, array in flat.items():
         head = path[0]

@@ -1,4 +1,4 @@
-"""Encoder-decoder Transformer sign classifier, eval only.
+"""Encoder-decoder Transformer sign classifier.
 
 Counterpart of sign_language_nlp_tpu/models/transformer.py:45-294, with
 the same parameter names (a flax `encoder_layer_{i}` is the port's
@@ -12,10 +12,17 @@ name by name:
     encoder too), `mask_memory` (cross-attention masks padded memory
     only when True) and `tgt_input` ("label": the decoder reads the
     label; "bos": a constant token);
-  * a log-softmax head on the decoder's single position, in f32.
+  * a log-softmax head on the decoder's single position, in f32;
+  * in training mode, dropout at the JAX model's sites and rate
+    (models/transformer.py:99-141, 216-239 there): both embedded streams,
+    every residual branch before its add, the feed-forward's hidden
+    activation, and the attention weights (through K1's dropout branch on
+    the card). As in the JAX model, the rate is an argument of each call
+    (`dropout_rate`, default the model's `dropout`), and so is the
+    generator the masks are drawn from. `eval()` turns dropout off.
 
-Training (dropout, population axis) comes with the training slice
-(ROADMAP queue 1 items 5-6); `scan_layers` is not ported: layers are a
+The population axis is not here: the port's trainer keeps one module per
+cell (training/engine.py). `scan_layers` is not ported: layers are a
 `ModuleList`, and models/convert.py unstacks a scanned flax tree.
 """
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import causal_bias, multi_head_attention, padding_bias
+from ..ops.dropout import dropout
 from ..ops.fused_attention import head_shared_bias
 from .init import embedding_, torch_linear_
 from .positional import sinusoidal_positional_encoding
@@ -45,11 +53,20 @@ class MultiHeadAttentionBlock(nn.Module):
         self.v_proj = nn.Linear(d_model, d_model)
         self.out_proj = nn.Linear(d_model, d_model)
 
-    def forward(self, q_in, kv_in, bias):
+    def forward(self, q_in, kv_in, bias, rate=0.0, generator=None):
+        """`rate` > 0 drops attention weights, with per-row seeds drawn
+        from `generator` on each call (callers pass 0 outside
+        training)."""
+        seeds = None
+        if rate:
+            seeds = torch.randint(0, torch.iinfo(torch.int32).max,
+                                  (q_in.shape[0],), generator=generator,
+                                  device=q_in.device, dtype=torch.int32)
         out = multi_head_attention(self.q_proj(q_in), self.k_proj(kv_in),
                                    self.v_proj(kv_in), bias,
                                    num_heads=self.num_heads,
-                                   backend=self.backend)
+                                   backend=self.backend, dropout_rate=rate,
+                                   seeds=seeds)
         return self.out_proj(out)
 
 
@@ -59,8 +76,9 @@ class FeedForward(nn.Module):
         self.linear1 = nn.Linear(d_model, hidden_size)
         self.linear2 = nn.Linear(hidden_size, d_model)
 
-    def forward(self, x):
-        return self.linear2(torch.relu(self.linear1(x)))
+    def forward(self, x, rate=0.0, generator=None):
+        h = dropout(torch.relu(self.linear1(x)), rate, generator)
+        return self.linear2(h)
 
 
 class EncoderLayer(nn.Module):
@@ -72,9 +90,12 @@ class EncoderLayer(nn.Module):
         self.ff = FeedForward(d_model, hidden_size)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x, bias):
-        x = self.norm1(x + self.self_attn(x, x, bias))
-        return self.norm2(x + self.ff(x))
+    def forward(self, x, bias, rate=0.0, generator=None):
+        def drop(t):
+            return dropout(t, rate, generator)
+
+        x = self.norm1(x + drop(self.self_attn(x, x, bias, rate, generator)))
+        return self.norm2(x + drop(self.ff(x, rate, generator)))
 
 
 class DecoderLayer(nn.Module):
@@ -89,10 +110,16 @@ class DecoderLayer(nn.Module):
         self.ff = FeedForward(d_model, hidden_size)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x, memory, self_bias, cross_bias):
-        x = self.norm1(x + self.self_attn(x, x, self_bias))
-        x = self.norm2(x + self.cross_attn(x, memory, cross_bias))
-        return self.norm3(x + self.ff(x))
+    def forward(self, x, memory, self_bias, cross_bias, rate=0.0,
+                generator=None):
+        def drop(t):
+            return dropout(t, rate, generator)
+
+        x = self.norm1(x + drop(self.self_attn(x, x, self_bias, rate,
+                                               generator)))
+        x = self.norm2(x + drop(self.cross_attn(x, memory, cross_bias, rate,
+                                                generator)))
+        return self.norm3(x + drop(self.ff(x, rate, generator)))
 
 
 class Transformer(nn.Module):
@@ -109,7 +136,7 @@ class Transformer(nn.Module):
             raise ValueError(f"tgt_input {tgt_input!r} not in label/bos")
         d = embedding_size
         self.embedding_size = d
-        self.dropout = dropout  # training rate, kept for the descriptor
+        self.dropout = dropout  # the training rate when a call passes None
         self.src_pad_idx, self.tgt_pad_idx = src_pad_idx, tgt_pad_idx
         self.bos_idx = bos_idx
         self.causal_encoder = causal_encoder
@@ -142,14 +169,22 @@ class Transformer(nn.Module):
         torch_linear_(self.head, generator)
 
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor,
-                y: torch.Tensor | None = None) -> torch.Tensor:
+                y: torch.Tensor | None = None,
+                dropout_rate: float | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """tokens [B,S] int, lengths [B] (unused: padding is read from
         the pad index, as in the JAX model), y [B] labels → log-probs
-        [B, V_tgt] f32."""
+        [B, V_tgt] f32. In training mode, dropout at `dropout_rate`
+        (None: the model's `dropout`) with masks drawn from `generator`
+        (None: torch's default generator)."""
+        rate = 0.0
         if self.training:
-            raise NotImplementedError(
-                "the port's Transformer is eval-only; training comes with "
-                "ROADMAP queue 1 items 5-6 (call .eval())")
+            rate = float(self.dropout if dropout_rate is None
+                         else dropout_rate)
+
+        def drop(t):
+            return dropout(t, rate, generator)
+
         B, S = tokens.shape
         d = self.embedding_size
         dev = tokens.device
@@ -163,10 +198,10 @@ class Transformer(nn.Module):
                                     device=dev)
 
         scale = math.sqrt(d)
-        src = (self.src_embedding(tokens.long()) * scale
-               + sinusoidal_positional_encoding(S, d, device=dev))
-        tgt = (self.tgt_embedding(tgt_tokens) * scale
-               + sinusoidal_positional_encoding(1, d, device=dev))
+        src = drop(self.src_embedding(tokens.long()) * scale
+                   + sinusoidal_positional_encoding(S, d, device=dev))
+        tgt = drop(self.tgt_embedding(tgt_tokens) * scale
+                   + sinusoidal_positional_encoding(1, d, device=dev))
 
         src_valid = tokens != self.src_pad_idx
         src_bias = padding_bias(src_valid)
@@ -182,12 +217,12 @@ class Transformer(nn.Module):
 
         h = src
         for layer in self.encoder_layers:
-            h = layer(h, src_bias)
+            h = layer(h, src_bias, rate, generator)
         memory = self.encoder_norm(h)
 
         g = tgt
         for layer in self.decoder_layers:
-            g = layer(g, memory, tgt_bias, cross_bias)
+            g = layer(g, memory, tgt_bias, cross_bias, rate, generator)
         g = self.decoder_norm(g)
 
         logits = self.head(g[:, 0, :].float())

@@ -14,7 +14,7 @@ import os
 
 import torch
 
-from sign_language_nlp_tpu.utils import log, read_json, save_json
+from ..utils import log, read_json, save_json
 
 
 def save_checkpoint(workdir: str, state_dict: dict, descriptor: dict) -> str:

@@ -137,7 +137,7 @@ def test_head_shared_bias_is_used_as_it_is():
 
 def test_dispatch_refusals():
     q = torch.zeros(1, 2, E)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="seeds"):
         att.multi_head_attention(q, q, q, num_heads=H, dropout_rate=0.1)
     with pytest.raises(ValueError, match="backend"):
         att.multi_head_attention(q, q, q, num_heads=H, backend="flash")

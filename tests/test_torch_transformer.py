@@ -142,10 +142,20 @@ def test_init_is_seeded_and_torch_like():
 
 
 def test_training_mode_raises():
+    """Training mode used to raise; it now runs dropout at the call's
+    rate, drawn from the call's generator, and `eval()` turns it off."""
     model = Transformer(SRC_V, TGT_V, **DIMS)
     tokens, lengths, y = (torch.from_numpy(a) for a in _batch())
-    with pytest.raises(NotImplementedError, match="eval"):
-        model(tokens, lengths, y)
+    with torch.no_grad():
+        model.eval()
+        want = model(tokens, lengths, y)
+        model.train()
+        same = model(tokens, lengths, y, dropout_rate=0.0)
+        a, b = (model(tokens, lengths, y, dropout_rate=0.3,
+                      generator=torch.Generator().manual_seed(1))
+                for _ in range(2))
+    torch.testing.assert_close(same, want, rtol=0, atol=1e-6)
+    assert torch.equal(a, b) and not torch.allclose(a, want, atol=1e-3)
 
 
 def test_build_model_filters_like_jax():
