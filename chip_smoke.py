@@ -9,8 +9,8 @@ CUDA toolkit. In order it:
 
  1. prints the card's `nvidia-smi --query-gpu=name,power.limit` line;
  2. turns TF32 off for matmuls and cuDNN (every check is full f32);
- 3. builds both CUDA sources from csrc/ with nvcc, one process each,
-    started together, and prints the build times and ptxas's
+ 3. builds the three CUDA sources from csrc/ with nvcc, one process
+    each, started together, and prints the build times and ptxas's
     register/shared-memory report;
  4. K1 phase: the fused attention forward against its plain PyTorch
     version, max |diff| <= 1e-4, over head widths D in {16..256},
@@ -25,12 +25,27 @@ CUDA toolkit. In order it:
     with the same mask, rates 0, 0.1 and 0.5, the same grid, loss
     sum(out^2): max |diff| of dq, dk, dv <= 1e-4 * max(1, max|ref|)
     (only the order of the f32 sums differs);
- 7. timing, CUDA events, in turns (plain, kernel, kernel, plain): K1 at
+ 7. K3 phase: the single-head fused attention kernel against its plain
+    version, max |diff| <= 1e-4, over D in {8, 24, 64, 128, 256}, (Sq,
+    Sk) in {(120,120), (1,1), (1,120), (97,97), (120,37)} and four
+    per-slice biases (N(0,1); causal + padding from per-row lengths,
+    expanded per head; the last 4 keys masked; N(0,1) with one slice's
+    row fully masked), at BH 6, plus one case at BH 70000;
+ 8. K3 path phase: the op's entry point `fused_attention_bh`, forward
+    and gradient, at the grid's full width in head-split layout (q/k/v
+    [400,120,128], 50 rows x 8 heads, the encoder's causal + padding
+    bias per slice, gradients for q, k, v and the bias, loss
+    sum(out^2)) against the all-plain path: loss within 1e-4 relative,
+    dq, dk, dv, dbias within 1e-4 * max(1, max|ref|), one K3 launch per
+    forward and none of K1 or K2; then the forward alone at the serving
+    shape [2048,120,128];
+ 9. timing, CUDA events, in turns (plain, kernel, kernel, plain): K1 at
     the serving shape q/k/v [256,120,1024] with 8 heads; K1 with dropout
-    0.1 and K2 at the training shape [50,120,1024]; beside them, for the
-    record only, F.scaled_dot_product_attention with a float mask (the
-    forward without dropout, and its backward);
- 8. serving slice: writes a synthetic corpus (100 classes, 2000
+    0.1 and K2 at the training shape [50,120,1024]; K3 at [2048,120,128]
+    (K1's serving arithmetic, head-split) and [400,120,128]; beside
+    them, for the record only, F.scaled_dot_product_attention with a
+    float mask (the forward without dropout, and its backward);
+10. serving slice: writes a synthetic corpus (100 classes, 2000
     samples), saves a full-width Transformer (emb 1024, 8 heads, 6
     layers, FF 512) with seeded random weights as a port checkpoint,
     runs `sign_language_nlp_torch.predict.main(... --device cuda)`,
@@ -38,7 +53,7 @@ CUDA toolkit. In order it:
     cross attentions), and holds the first batch's log-probs against the
     same model on the plain attention path (max |diff| <= 1e-3, same
     argmax wherever the top-2 margin exceeds 1e-3);
- 9. training slice: `PopulationTrainer.fit` at the same width on the
+11. training slice: `PopulationTrainer.fit` at the same width on the
     same corpus and its monitor split (`train_valid_split`), P = 2 cells
     (lr 0.1 with dropout 0.5, lr 0.01 with dropout 0.1), 2 epochs, with
     the transformer grid's training settings; checks finite losses and
@@ -50,12 +65,14 @@ CUDA toolkit. In order it:
     train step of one cell by kind of kernel, and the device's busy
     share, from torch.profiler (the difference of a 20- and a 10-step
     fit);
-10. prints one {"training": {...}} line (the slice's counts, wall time
+    Neither slice launches K3: no model path goes to it, in the JAX
+    package either;
+12. prints one {"training": {...}} line (the slice's counts, wall time
     and peak memory), then one {"kernels": [...]} line: per kernel (K1
-    without and with dropout, K2) its launches on the two paths, its
+    without and with dropout, K2, K3) its launches on each path, its
     error against its plain version, and its time, its plain version's,
     the library call's and its bound at the path's shape;
-11. prints {"ok": true, "device": {...}} as the last line.
+13. prints {"ok": true, "device": {...}} as the last line.
 
 Any failed check exits non-zero before the last line. Without CUDA, or
 outside a checkout of the repo, it exits non-zero and prints no result.
@@ -108,6 +125,10 @@ HEAD_CASES = [(16, 128, 8), (32, 128, 4), (64, 512, 8), (128, 1024, 8),
               (256, 1024, 4)]
 SEQ_CASES = [(120, 120), (1, 1), (1, 120), (97, 97)]
 BIAS_CASES = ["causal_padding", "zero", "masked_row"]
+# K3: head widths (any D <= 256), sequence shapes and per-slice biases.
+K3_HEAD_DIMS = (8, 24, 64, 128, 256)
+K3_SEQ_CASES = [(120, 120), (1, 1), (1, 120), (97, 97), (120, 37)]
+K3_BIAS_CASES = ["normal", "causal_padding", "last4", "masked_row"]
 # Kinds of device kernel in a training step's trace, by name.
 KINDS = (("K1 (fused attention forward)", r"fused_attention_fwd"),
          ("K2 (fused attention backward)", r"attention_bwd"),
@@ -159,6 +180,34 @@ def make_seeds(B: int, gen) -> torch.Tensor:
                          dtype=torch.int32)
 
 
+def make_bh_bias(kind: str, B: int, H: int, Sq: int, Sk: int, gen,
+                 neg_inf) -> torch.Tensor:
+    """Per-slice [B*H,Sq,Sk] f32 bias for K3: "normal" N(0,1);
+    "causal_padding" from per-row lengths, expanded per head, as the
+    encoder's mask; "last4" the last 4 keys masked (the JAX test's
+    fixture); "masked_row" N(0,1) with one slice's middle row all
+    NEG_INF."""
+    if kind == "causal_padding":
+        return make_bias(kind, B, Sq, Sk, gen, neg_inf).repeat_interleave(
+            H, dim=0)
+    if kind == "last4":
+        bias = torch.zeros((B * H, Sq, Sk), device="cuda")
+        bias[:, :, -4:] = neg_inf
+        return bias
+    bias = torch.randn((B * H, Sq, Sk), generator=gen, device="cuda")
+    if kind == "masked_row":
+        bias[1, Sq // 2] = neg_inf
+    return bias
+
+
+def reset_counts(fa, fab) -> None:
+    """Every kernel's launch count to 0."""
+    fa.fused_attention_fwd.launches = 0
+    fa.fused_attention_fwd.dropout_launches = 0
+    fa.fused_attention_bwd.launches = 0
+    fab.fused_attention_bh_fwd.launches = 0
+
+
 def case_grid():
     for D, E, H in HEAD_CASES:
         for Sq, Sk in SEQ_CASES:
@@ -167,7 +216,7 @@ def case_grid():
 
 
 def build_phase(build) -> None:
-    """Both sources at once, one nvcc each."""
+    """Every source at once, one nvcc each."""
     with concurrent.futures.ThreadPoolExecutor(len(build.SOURCES)) as pool:
         builds = list(pool.map(build.build, build.SOURCES))
     for source, built in zip(build.SOURCES, builds):
@@ -182,6 +231,7 @@ def build_phase(build) -> None:
                         log("ptxas: " + line.strip())
     build.fused_attention_library()
     build.fused_attention_bwd_library()
+    build.fused_attention_bh_library()
 
 
 def kernel_phase(fa, neg_inf) -> float:
@@ -307,6 +357,96 @@ def backward_phase(fa, neg_inf) -> float:
     check(not failures, f"K2 disagrees with autograd of the plain version: "
           f"{failures}")
     return worst_abs, worst
+
+
+def k3_phase(fab, neg_inf) -> float:
+    """K3 against its plain version on per-slice biases, any D <= 256."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst, failures = 0.0, []
+    cases = [(2, 3, D, Sq, Sk, kind) for D in K3_HEAD_DIMS
+             for Sq, Sk in K3_SEQ_CASES for kind in K3_BIAS_CASES]
+    cases.append((70000, 1, 24, 2, 3, "normal"))  # BH beyond 65535
+    for B, H, D, Sq, Sk, kind in cases:
+        q = torch.randn((B * H, Sq, D), generator=gen, device="cuda")
+        k = torch.randn((B * H, Sk, D), generator=gen, device="cuda")
+        v = torch.randn((B * H, Sk, D), generator=gen, device="cuda")
+        bias = make_bh_bias(kind, B, H, Sq, Sk, gen, neg_inf)
+        out = fab.fused_attention_bh_fwd(q, k, v, bias)
+        ref = fab.fused_attention_bh_reference(q, k, v, bias)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        finite = bool(torch.isfinite(out).all())
+        worst = max(worst, err)
+        status = "ok" if finite and err <= KERNEL_TOL else "FAIL"
+        log(f"K3 BH={B * H:5d} D={D:3d} Sq={Sq:3d} Sk={Sk:3d} "
+            f"bias={kind:14s} max|diff|={err:.3e} {status}")
+        if status != "ok":
+            failures.append((B * H, D, Sq, Sk, kind, err, finite))
+    check(not failures, f"K3 disagrees with its plain version: {failures}")
+    return worst
+
+
+def k3_path_phase(fa, fab, neg_inf) -> dict:
+    """The op's entry point, as the JAX tests run it, at the grid's full
+    width in head-split layout: forward and gradient at [400,120,128]
+    against the all-plain path, then the forward alone at the serving
+    shape [2048,120,128]. The counts are read over both calls."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    H, S, D = 8, 120, 128
+
+    def inputs(B):
+        qkv = [torch.randn((B * H, S, D), generator=gen, device="cuda")
+               for _ in range(3)]
+        return qkv + [make_bh_bias("causal_padding", B, H, S, S, gen,
+                                   neg_inf)]
+
+    train, serving = inputs(50), inputs(256)
+    plain_in = [t.clone().requires_grad_() for t in train]
+    plain_out = fab.fused_attention_bh_reference(*plain_in)
+    plain_loss = (plain_out ** 2).sum()
+    ref = torch.autograd.grad(plain_loss, plain_in)
+    got_in = [t.clone().requires_grad_() for t in train]
+    torch.cuda.synchronize()
+
+    reset_counts(fa, fab)
+    out = fab.fused_attention_bh(*got_in)
+    loss = (out ** 2).sum()
+    got = torch.autograd.grad(loss, got_in)
+    after_grad = fab.fused_attention_bh_fwd.launches
+    serving_out = fab.fused_attention_bh(*serving)
+    torch.cuda.synchronize()
+    launches = fab.fused_attention_bh_fwd.launches
+    others = (fa.fused_attention_fwd.launches
+              + fa.fused_attention_bwd.launches)
+
+    loss, plain_loss = float(loss.detach()), float(plain_loss.detach())
+    loss_err = abs(loss - plain_loss) / abs(plain_loss)
+    fwd_err = float((out - plain_out).detach().abs().max())
+    diffs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+    errs = [d / max(1.0, float(r.abs().max())) for d, r in zip(diffs, ref)]
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    serving_err = float((serving_out
+                         - fab.fused_attention_bh_reference(*serving))
+                        .abs().max())
+    log(f"K3 path: q/k/v [{50 * H},{S},{D}] loss kernel {loss:.6f} "
+        f"plain {plain_loss:.6f} (rel {loss_err:.3e}), out "
+        f"max|diff| {fwd_err:.3e}; rel max|diff| "
+        + ", ".join(f"{n} {e:.3e}" for n, e in zip(("dq", "dk", "dv",
+                                                     "dbias"), errs))
+        + f"; serving forward [{256 * H},{S},{D}] max|diff| "
+        f"{serving_err:.3e}; launches K3 {launches} ({after_grad} with the "
+        f"gradient), K1 + K2 {others}")
+    check(loss_err <= 1e-4, f"K3 path: loss differs by {loss_err:.3e}")
+    check(fwd_err <= KERNEL_TOL and serving_err <= KERNEL_TOL,
+          f"K3 path: forward differs by {fwd_err:.3e}, {serving_err:.3e}")
+    check(finite and max(errs) <= GRAD_TOL,
+          f"K3 path: gradients differ by {errs} (finite {finite})")
+    check(after_grad == 1 and launches == 2 and others == 0,
+          f"K3 path: launches K3 {after_grad} then {launches}, K1 + K2 "
+          f"{others}; want 1, 2 and 0")
+    return {"launches": launches, "loss_rel_err": loss_err,
+            "max_abs_err": max(fwd_err, serving_err),
+            "grad_abs_err": max(diffs), "grad_rel_err": max(errs)}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -455,6 +595,40 @@ def timing_phase(fa, neg_inf) -> dict:
     return rows
 
 
+def k3_timing(fab, neg_inf) -> dict:
+    """K3, its plain version and the library call at the serving shape
+    [2048,120,128] (K1's serving launch, head-split) and the training
+    shape [400,120,128], each slice with the encoder's bias (the path
+    phase holds K3 to its plain version at both shapes)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    H, S, D = 8, 120, 128
+    rows = {}
+    for path, B in (("serving", 256), ("training", 50)):
+        BH = B * H
+        q, k, v = (torch.randn((BH, S, D), generator=gen, device="cuda")
+                   for _ in range(3))
+        bias = make_bh_bias("causal_padding", B, H, S, S, gen, neg_inf)
+        kernel_ms, plain_ms = in_turns(
+            lambda: fab.fused_attention_bh_reference(q, k, v, bias),
+            lambda: fab.fused_attention_bh_fwd(q, k, v, bias),
+            f"K3 q/k/v [{BH},{S},{D}] f32")
+        with torch.no_grad():
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias))
+        # QKᵀ and PV; q, k, v and the per-slice bias read, out written.
+        b_ms, b_by = bound(4.0 * BH * S * S * D,
+                           4.0 * (4 * BH * S * D + BH * S * S))
+        log(f"timing K3 {path}: library (SDPA, per-slice float mask) "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        rows[path] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "shape": [BH, S, D]}
+        del q, k, v, bias
+    return rows
+
+
 def load_synth():
     spec = importlib.util.spec_from_file_location(
         "make_synth_corpus", os.path.join(ROOT, "scripts",
@@ -464,7 +638,7 @@ def load_synth():
     return synth
 
 
-def slice_phase(fa, tmp: str, corpus: str) -> dict:
+def slice_phase(fa, fab, tmp: str, corpus: str) -> dict:
     from sign_language_nlp_torch import predict
     from sign_language_nlp_torch.data import DatasetBuilder
     from sign_language_nlp_torch.models.registry import build_model
@@ -490,17 +664,16 @@ def slice_phase(fa, tmp: str, corpus: str) -> dict:
     del model
 
     out_path = os.path.join(tmp, "preds.json")
-    fa.fused_attention_fwd.launches = 0
-    fa.fused_attention_fwd.dropout_launches = 0
-    fa.fused_attention_bwd.launches = 0
+    reset_counts(fa, fab)
     t0 = time.perf_counter()
     predict.main(["--checkpoint", ckpt, "--dataset_dir", corpus,
                   "--out", out_path, "--device", "cuda"])
     wall = time.perf_counter() - t0
     launches = fa.fused_attention_fwd.launches
+    k3 = fab.fused_attention_bh_fwd.launches
     check(fa.fused_attention_fwd.dropout_launches == 0
-          and fa.fused_attention_bwd.launches == 0,
-          "serving launched the dropout branch or K2")
+          and fa.fused_attention_bwd.launches == 0 and k3 == 0,
+          "serving launched the dropout branch, K2 or K3")
     with open(out_path) as f:
         preds = json.load(f)
     n = len(preds)
@@ -542,7 +715,7 @@ def slice_phase(fa, tmp: str, corpus: str) -> dict:
         f"{n / fwd:.1f} samples/s")
     check(err <= LOGPROB_TOL, f"log-probs differ by {err:.3e}")
     check(agree, "argmax differs where the margin is clear")
-    return {"launches": launches, "logprob_err": err}
+    return {"launches": launches, "k3": k3, "logprob_err": err}
 
 
 def _first_step(factory, cell_gens, state, rate, batch, backend):
@@ -639,7 +812,7 @@ def training_profile(trainer, data, task, longer) -> dict:
             "span_ms_per_step": step_span, "kinds": dict(kinds)}
 
 
-def training_phase(fa, corpus: str) -> dict:
+def training_phase(fa, fab, corpus: str) -> dict:
     from sign_language_nlp_torch.data import AslDataset
     from sign_language_nlp_torch.models.registry import build_model
     from sign_language_nlp_torch.search.kfold import train_valid_split
@@ -672,9 +845,7 @@ def training_phase(fa, corpus: str) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.fused_attention_fwd.launches = 0
-    fa.fused_attention_fwd.dropout_launches = 0
-    fa.fused_attention_bwd.launches = 0
+    reset_counts(fa, fab)
     t0 = time.perf_counter()
     out = trainer.fit(data, task)
     torch.cuda.synchronize()
@@ -682,6 +853,7 @@ def training_phase(fa, corpus: str) -> dict:
     k1 = fa.fused_attention_fwd.launches
     k1_drop = fa.fused_attention_fwd.dropout_launches
     k2 = fa.fused_attention_bwd.launches
+    k3 = fab.fused_attention_bh_fwd.launches
     peak = torch.cuda.max_memory_allocated()
 
     hist = out["history"]
@@ -691,7 +863,7 @@ def training_phase(fa, corpus: str) -> dict:
         f"({steps / wall:.2f} steps/s over the fit, valid passes "
         f"included), {evals} eval batches; peak memory "
         f"{peak / 2 ** 30:.2f} GiB; launches K1 {k1} (dropout {k1_drop}), "
-        f"K2 {k2}")
+        f"K2 {k2}, K3 {k3}")
     for key in ("train_loss", "valid_loss", "valid_accuracy",
                 "valid_neg_log_loss", "lr"):
         log(f"training: {key} by epoch x cell {hist[key].tolist()}")
@@ -701,7 +873,7 @@ def training_phase(fa, corpus: str) -> dict:
               if v.dtype != bool), "non-finite history")
     check(list(out["epochs_run"]) == [2] * P, f"epochs {out['epochs_run']}")
     check(k1 == per * (steps + evals) and k1_drop == per * steps
-          and k2 == per * steps,
+          and k2 == per * steps and k3 == 0,
           f"launches K1 {k1} (dropout {k1_drop}), K2 {k2} for {steps} "
           f"steps and {evals} eval batches")
 
@@ -737,7 +909,8 @@ def training_phase(fa, corpus: str) -> dict:
                           lr=np.float32([CELLS[0][0]]),
                           dropout=np.float32([CELLS[0][1]]))
                 for n in (1, 2)))
-    return {"k1": k1, "k1_dropout": k1_drop, "k2": k2, "steps": steps,
+    return {"k1": k1, "k1_dropout": k1_drop, "k2": k2, "k3": k3,
+            "steps": steps,
             "eval_batches": evals, "wall_s": wall, "peak_bytes": peak,
             "profile": profile,
             "first_step_loss_err": worst_loss,
@@ -756,6 +929,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from sign_language_nlp_torch.kernels import build
     from sign_language_nlp_torch.ops import fused_attention as fa
+    from sign_language_nlp_torch.ops import fused_attention_bh as fab
     from sign_language_nlp_torch.ops.attention import NEG_INF
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -772,13 +946,19 @@ def main() -> int:
     worst = kernel_phase(fa, NEG_INF)
     worst_drop = dropout_phase(fa, NEG_INF)
     worst_grad_abs, worst_grad_rel = backward_phase(fa, NEG_INF)
+    worst_k3 = k3_phase(fab, NEG_INF)
+    k3_path = k3_path_phase(fa, fab, NEG_INF)
     times = timing_phase(fa, NEG_INF)
+    k3_times = k3_timing(fab, NEG_INF)
+    log(f"timing K3 serving {k3_times['serving']['ms']:.4f} ms beside K1 "
+        f"{times['fwd']['ms']:.4f} ms on the same arithmetic (K1's serving "
+        "launch in model layout)")
     with tempfile.TemporaryDirectory() as tmp:
         corpus = os.path.join(tmp, "corpus")
         load_synth().make_corpus(corpus, n_classes=100, n_samples=2000,
                                  seed=1)
-        serving = slice_phase(fa, tmp, corpus)
-        training = training_phase(fa, corpus)
+        serving = slice_phase(fa, fab, tmp, corpus)
+        training = training_phase(fa, fab, corpus)
 
     def entry(name, source, replaces, launches, row, err):
         return {"name": name, "route": "cuda",
@@ -811,6 +991,17 @@ def main() -> int:
          "launches_by_path": {"training": training["k2"]},
          "rate": times["bwd"]["rate"],
          "max_rel_err": max(worst_grad_rel, times["bwd"]["max_rel_err"])},
+        {**entry("fused_attention_bh", "fused_attention_bh.cu",
+                 "pallas_attention.py:36",
+                 serving["k3"] + training["k3"] + k3_path["launches"],
+                 k3_times["serving"],
+                 max(worst_k3, k3_path["max_abs_err"])),
+         "launches_by_path": {"serving": serving["k3"],
+                              "training": training["k3"],
+                              "op": k3_path["launches"]},
+         "k1_ms": times["fwd"]["ms"], "training_shape": k3_times["training"],
+         "grad_max_rel_err": k3_path["grad_rel_err"],
+         "loss_rel_err": k3_path["loss_rel_err"]},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,13 +12,18 @@ Ported so far: the transformer serving path,
 ``python -m sign_language_nlp_torch.predict``, and the population
 trainer, ``training.engine.PopulationTrainer.fit``, with the fused
 attention forward (with and without dropout) and backward as CUDA
-kernels.
+kernels; and the single-head fused attention op,
+``ops.fused_attention_bh.fused_attention_bh`` over [BH,S,D] slices with
+a per-slice bias, whose forward is a CUDA kernel and whose gradient
+(the bias's included) is autograd of its plain version. With it every
+TPU kernel of the JAX package has its CUDA counterpart.
 
 Layout:
   data/      — corpus building, vocabularies, static-shape datasets
   utils/     — logging and filesystem helpers
   ops/       — attention dispatch; the fused kernels' wrappers, autograd
-               function and plain versions; dropout, losses, metrics
+               functions and plain versions; the single-head op
+               (fused_attention_bh); dropout, losses, metrics
   csrc/      — hand-written CUDA C++ for sm_90a
   kernels/   — nvcc build at first use, ctypes binding
   models/    — Transformer, initialisers, registry, flax→torch weight

@@ -79,7 +79,8 @@ def build(source: str) -> Built:
     return Built(lib, log, seconds)
 
 
-SOURCES = ("fused_attention_fwd.cu", "fused_attention_bwd.cu")
+SOURCES = ("fused_attention_fwd.cu", "fused_attention_bwd.cu",
+           "fused_attention_bh.cu")
 
 
 def _load(source: str, fn_name: str, argtypes: list) -> ctypes.CDLL:
@@ -113,3 +114,13 @@ def fused_attention_bwd_library() -> ctypes.CDLL:
     (pointers), B, Sq, Sk, E, H, scale, stream."""
     return _load("fused_attention_bwd.cu", "slt_fused_attention_bwd_f32",
                  [_P] * 7 + [_F] + [_P] * 4 + [_I] * 5 + [_F, _P])
+
+
+@functools.lru_cache(maxsize=None)
+def fused_attention_bh_library() -> ctypes.CDLL:
+    """K3, the single-head fused attention forward
+    (csrc/fused_attention_bh.cu), built on first call and loaded once per
+    process. Arguments: q, k, v, bias, o (pointers), BH, Sq, Sk, D,
+    scale, stream."""
+    return _load("fused_attention_bh.cu", "slt_fused_attention_bh_f32",
+                 [_P] * 5 + [_I] * 4 + [_F, _P])

@@ -1,1 +1,3 @@
-"""Attention: dispatch, the fused CUDA kernel wrapper, plain versions."""
+"""Attention: dispatch, the fused CUDA kernels' wrappers, plain versions;
+the single-head fused attention op `fused_attention_bh.fused_attention_bh`
+(K3); dropout, losses, metrics."""

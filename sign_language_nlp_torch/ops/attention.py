@@ -38,11 +38,12 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          dropout_rate: float = 0.0,
                          seeds: torch.Tensor | None = None) -> torch.Tensor:
     """Attention over already-projected q [B,Sq,E] and k/v [B,Sk,E].
-    `bias` is additive and head-shared: either broadcastable to
-    [B,1,Sq,Sk], or already the kernel's contiguous [B,Sq,Sk] f32 (see
-    `head_shared_bias`), which is used as it is. With `dropout_rate` > 0,
-    inverted dropout on the attention weights, keyed by int32 `seeds`
-    [B]. Returns [B,Sq,E]."""
+    `bias` is additive: broadcastable to [B,1,Sq,Sk], or already the
+    kernel's contiguous [B,Sq,Sk] f32 (see `head_shared_bias`), which is
+    used as it is. The plain version also takes a per-head bias
+    broadcastable to [B,H,Sq,Sk], as the einsum path does; the kernels
+    refuse one. With `dropout_rate` > 0, inverted dropout on the
+    attention weights, keyed by int32 `seeds` [B]. Returns [B,Sq,E]."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     if dropout_rate and seeds is None:
@@ -51,13 +52,17 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("embed dim must divide num_heads")
     B, Sq, _ = q.shape
     Sk = k.shape[1]
-    bias_hs = head_shared_bias(bias, B, Sq, Sk, q.device)
     if backend == "xla" or q.device.type == "cpu":
+        per_head = bias is not None and bias.dim() == 4 and bias.shape[1] != 1
         keep = (dropout_keep_mask(seeds, num_heads, Sq, Sk, dropout_rate)
                 if dropout_rate else None)
-        return fused_attention_reference(q, k, v, bias_hs, num_heads, keep,
-                                         dropout_rate)
-    return fused_attention(q, k, v, bias_hs, num_heads, seeds, dropout_rate)
+        return fused_attention_reference(
+            q, k, v, bias if per_head else head_shared_bias(bias, B, Sq, Sk,
+                                                            q.device),
+            num_heads, keep, dropout_rate)
+    return fused_attention(q, k, v, head_shared_bias(bias, B, Sq, Sk,
+                                                     q.device),
+                           num_heads, seeds, dropout_rate)
 
 
 def causal_bias(seq_len: int, dtype=torch.float32,

@@ -45,7 +45,8 @@ def head_shared_bias(bias: torch.Tensor | None, B: int, Sq: int,
     if bias.dim() == 4:
         if bias.shape[1] != 1:
             raise ValueError(f"bias {tuple(bias.shape)} is per head; the "
-                             "fused kernel takes a head-shared bias")
+                             "fused kernel takes a head-shared bias "
+                             "(backend=\"xla\" takes a per-head one)")
         bias = bias[:, 0]
     return (bias.to(torch.float32).expand(B, Sq, Sk).contiguous())
 
@@ -106,8 +107,10 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
     sign_language_nlp_tpu/ops/attention.py:75-92 written with matmul and
     softmax, with the kernels' dropout when `keep` ([B,H,Sq,Sk] bool,
     from `dropout_keep_mask`) is given. q [B,Sq,E], k/v [B,Sk,E], bias
-    [B,Sq,Sk] → [B,Sq,E] in q's dtype; scores and softmax in f32. Its
-    backward is PyTorch autograd."""
+    head-shared [B,Sq,Sk] or 4-D broadcastable to [B,H,Sq,Sk] (a per-head
+    bias, which the einsum path takes and the kernels do not) → [B,Sq,E]
+    in q's dtype; scores and softmax in f32. Its backward is PyTorch
+    autograd."""
     B, Sq, E = q.shape
     Sk = k.shape[1]
     D = E // num_heads
@@ -115,7 +118,8 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
     kh = k.reshape(B, Sk, num_heads, D).transpose(1, 2).float()
     vh = v.reshape(B, Sk, num_heads, D).transpose(1, 2)
     scores = torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / math.sqrt(D))
-    weights = torch.softmax(scores + bias[:, None].float(), dim=-1)
+    bias = bias[:, None] if bias.dim() == 3 else bias
+    weights = torch.softmax(scores + bias.float(), dim=-1)
     if keep is not None:
         weights = torch.where(keep, weights * dropout_inv(rate), 0.0)
     out = torch.matmul(weights.to(vh.dtype), vh)

@@ -93,6 +93,49 @@ def test_multi_head_attention_matches_jax(backend, bias_shape):
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("backend", ["xla", "auto", "pallas"])
+def test_per_head_bias_matches_jax(backend):
+    """A per-head bias [B,H,Sq,Sk], added before the softmax as the
+    einsum path adds it (sign_language_nlp_tpu/ops/attention.py:82-83),
+    with one head's row fully masked. On CPU tensors every backend takes
+    the plain version."""
+    Sq, Sk = 5, 7
+    q, k, v, _ = _inputs(Sq, Sk, "zero", seed=3)
+    bias = np.random.default_rng(4).normal(size=(B, H, Sq, Sk))
+    bias[0, 1, :, -2:] = jax_att.NEG_INF
+    bias[2, 3, 1] = jax_att.NEG_INF
+    bias = bias.astype(np.float32)
+    want = np.asarray(jax_att.multi_head_attention(
+        q, k, v, bias, num_heads=H, backend="xla"))
+    got = att.multi_head_attention(*_t(q, k, v, bias), num_heads=H,
+                                   backend=backend).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_per_head_bias_refused_on_the_kernel_path(backend):
+    """Off the CPU, "auto" and "pallas" go to the kernels, which take a
+    head-shared bias only: a per-head one raises before any launch and
+    names the backend that takes it, with no silent change of path. A
+    meta tensor stands in for a CUDA one, which this build of torch may
+    not make; the checks come before the device, so the same happens on
+    the card."""
+    q = torch.empty(B, 4, E, device="meta")
+    per_head = torch.zeros(B, H, 4, 4, device="meta")
+    before = fused_attention_fwd.launches
+    with pytest.raises(ValueError, match='per head.*backend="xla"'):
+        att.multi_head_attention(q, q, q, per_head, num_heads=H,
+                                 backend=backend)
+    with pytest.raises(ValueError, match="CUDA device"):  # the kernel path
+        att.multi_head_attention(q, q, q, per_head[:, :1], num_heads=H,
+                                 backend=backend)
+    assert fused_attention_fwd.launches == before
+    out = att.multi_head_attention(q, q, q, per_head, num_heads=H,
+                                   backend="xla")
+    assert out.shape == q.shape
+
+
 def test_masks_match_jax():
     valid = np.array([[True, True, False], [False, False, False]])
     np.testing.assert_array_equal(
