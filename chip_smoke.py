@@ -13,9 +13,10 @@ CUDA toolkit. In order it:
     each, started together, and prints the build times and ptxas's
     register/shared-memory report;
  4. K1 phase: the fused attention forward against its plain PyTorch
-    version, max |diff| <= 1e-4, over head widths D in {16..256},
-    (Sq, Sk) in {(120,120), (1,1), (1,120), (97,97)} and three biases
-    (causal + padding, zero, one batch row all NEG_INF);
+    version, max |diff| <= 1e-4, over head widths D in {8, 12, 16, 24,
+    32, 64, 128, 256}, (Sq, Sk) in {(120,120), (1,1), (1,120), (97,97)}
+    and four biases (causal + padding, zero, one batch row all NEG_INF,
+    one unmasked key a row);
  5. K1 dropout phase: the same grid at rates 0.1 and 0.5 against the
     plain version with the same keep-mask (`dropout_keep_mask`), max
     |diff| <= 1e-4; then the mask probe (V a per-head identity, so the
@@ -24,7 +25,8 @@ CUDA toolkit. In order it:
  6. K2 phase: the fused backward against autograd of the plain version
     with the same mask, rates 0, 0.1 and 0.5, the same grid, loss
     sum(out^2): max |diff| of dq, dk, dv <= 1e-4 * max(1, max|ref|)
-    (only the order of the f32 sums differs);
+    (3xTF32 products and the order of the f32 sums differ), and with one
+    unmasked key a row, dq exactly 0 in both;
  7. K3 phase: the single-head fused attention kernel against its plain
     version, max |diff| <= 1e-4, over D in {8, 24, 64, 128, 256}, (Sq,
     Sk) in {(120,120), (1,1), (1,120), (97,97), (120,37)} and four
@@ -41,10 +43,14 @@ CUDA toolkit. In order it:
     shape [2048,120,128];
  9. timing, CUDA events, in turns (plain, kernel, kernel, plain): K1 at
     the serving shape q/k/v [256,120,1024] with 8 heads; K1 with dropout
-    0.1 and K2 at the training shape [50,120,1024]; K3 at [2048,120,128]
-    (K1's serving arithmetic, head-split) and [400,120,128]; beside
-    them, for the record only, F.scaled_dot_product_attention with a
-    float mask (the forward without dropout, and its backward);
+    0.1 and K2 at the training shape [50,120,1024], where two K2
+    launches on the same inputs must give equal outputs, and at the
+    decoder's cross-attention shape (q [50,1,1024], k/v [50,120,1024]);
+    K3 at [2048,120,128] (K1's serving arithmetic, head-split) and
+    [400,120,128]; beside them, for the record only,
+    F.scaled_dot_product_attention with a float mask (the forward
+    without dropout, and its backward); bounds at the f32 CUDA-core
+    rate and, for K1 and K2, at the dense TF32 rate for 3xTF32;
 10. serving slice: writes a synthetic corpus (100 classes, 2000
     samples), saves a full-width Transformer (emb 1024, 8 heads, 6
     layers, FF 512) with seeded random weights as a port checkpoint,
@@ -61,10 +67,11 @@ CUDA toolkit. In order it:
     batches), K1 dropout launches and K2 launches = 18 x train steps;
     then one first step of each cell from the same weights and seeds
     through the kernels and through the plain path: losses within 1e-4,
-    global gradient norms within 1e-3 relative; then device time per
-    train step of one cell by kind of kernel, and the device's busy
-    share, from torch.profiler (the difference of a 20- and a 10-step
-    fit);
+    global gradient norms within 1e-3 relative; then, from one
+    torch.profiler trace of a 14-step one-cell fit, a window of 10
+    whole steady train steps marked by every 18th K1 launch: kernel ms
+    per step by kind, memcpy and memset apart, and the device's busy
+    share in the window, which must lie in (0, 1];
     Neither slice launches K3: no model path goes to it, in the JAX
     package either;
 12. prints one {"training": {...}} line (the slice's counts, wall time
@@ -120,11 +127,12 @@ TRAIN_SETTINGS = dict(
 CELLS = ((0.1, 0.5), (0.01, 0.1))  # (lr, dropout) of the two cells
 FIELDS = ["orientation_dh", "orientation_ndh", "movement_dh",
           "movement_ndh", "handshape_dh", "handshape_ndh"]
-# (D, E, H) from the transformer grid: E in {128, 512, 1024}, H in {4, 8}.
+# (D, E, H) from the transformer grid (E in {128, 512, 1024}, H in {4,
+# 8}), and widths off the grid that the kernels pad (D 8, 12, 24).
 HEAD_CASES = [(16, 128, 8), (32, 128, 4), (64, 512, 8), (128, 1024, 8),
-              (256, 1024, 4)]
+              (256, 1024, 4), (8, 32, 4), (12, 48, 4), (24, 96, 4)]
 SEQ_CASES = [(120, 120), (1, 1), (1, 120), (97, 97)]
-BIAS_CASES = ["causal_padding", "zero", "masked_row"]
+BIAS_CASES = ["causal_padding", "zero", "masked_row", "one_key"]
 # K3: head widths (any D <= 256), sequence shapes and per-slice biases.
 K3_HEAD_DIMS = (8, 24, 64, 128, 256)
 K3_SEQ_CASES = [(120, 120), (1, 1), (1, 120), (97, 97), (120, 37)]
@@ -139,8 +147,11 @@ KINDS = (("K1 (fused attention forward)", r"fused_attention_fwd"),
          ("softmax", r"softmax"),
          ("embedding", r"embedding|index|scatter|gather"),
          ("elementwise", r"elementwise|vectorized"))
-PROFILE_STEPS = 10   # train steps told apart by the training profile
+PROFILE_SKIP = 2     # warm train steps before the profile's window
+PROFILE_STEPS = 10   # whole steady train steps in the profile's window
+STEP_MARK = r"fused_attention_fwd"  # K1: 18 launches a train step
 F32_PEAK = 67e12     # H100 SXM f32 FLOP/s outside the tensor cores
+TF32_PEAK = 495e12   # H100 SXM dense TF32 FLOP/s on the tensor cores
 HBM_RATE = 3.35e12   # H100 SXM device memory bytes/s
 
 
@@ -172,6 +183,9 @@ def make_bias(kind: str, B: int, Sq: int, Sk: int, gen, neg_inf):
                                1)
     elif kind == "masked_row":
         bias[1] = neg_inf
+    elif kind == "one_key":  # every row leaves exactly one key unmasked
+        keys = torch.randint(0, Sk, (B, Sq, 1), generator=gen, device="cuda")
+        bias.fill_(neg_inf).scatter_(2, keys, 0.0)
     return bias
 
 
@@ -348,12 +362,19 @@ def backward_phase(fa, neg_inf) -> float:
             err = max(errs)
             worst = max(worst, err)
             worst_abs = max([worst_abs, *diffs])
-            status = "ok" if finite and err <= GRAD_TOL else "FAIL"
+            # One unmasked key a row: P is exactly one-hot, so dS and dq
+            # are exactly 0, in autograd of the plain version and in K2.
+            zeros = (kind != "one_key"
+                     or (bool((got[0] == 0).all())
+                         and bool((ref[0] == 0).all())))
+            status = "ok" if finite and zeros and err <= GRAD_TOL else "FAIL"
             log(f"backward rate={rate} D={D:3d} H={H} Sq={Sq:3d} Sk={Sk:3d} "
                 f"bias={kind:14s} rel max|diff| dq {errs[0]:.3e} dk "
-                f"{errs[1]:.3e} dv {errs[2]:.3e} {status}")
+                f"{errs[1]:.3e} dv {errs[2]:.3e}"
+                f"{' dq == 0' if kind == 'one_key' and zeros else ''} "
+                f"{status}")
             if status != "ok":
-                failures.append((rate, D, Sq, Sk, kind, errs, finite))
+                failures.append((rate, D, Sq, Sk, kind, errs, finite, zeros))
     check(not failures, f"K2 disagrees with autograd of the plain version: "
           f"{failures}")
     return worst_abs, worst
@@ -479,6 +500,12 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
                                                              "bytes")
 
 
+def tf32_bound(flop: float, nbytes: float) -> float:
+    """The least time, ms, of the same work as 3xTF32 on the tensor cores
+    (three TF32 products for each f32 one), or of its bytes."""
+    return max(3.0 * flop / TF32_PEAK, nbytes / HBM_RATE) * 1e3
+
+
 def _sdpa_inputs(q, k, v, bias, H):
     """[B,S,E] model layout → SDPA's [B,H,S,D] views and a float mask
     [B,1,Sq,Sk] (the head-shared bias)."""
@@ -517,11 +544,14 @@ def timing_phase(fa, neg_inf) -> dict:
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             sq, sk, sv, attn_mask=smask))
     fwd_flop = 4.0 * B * S * S * E
-    b_ms, b_by = bound(fwd_flop, 4.0 * (4 * B * S * E + B * S * S))
+    fwd_bytes = 4.0 * (4 * B * S * E + B * S * S)
+    b_ms, b_by = bound(fwd_flop, fwd_bytes)
     log(f"timing K1 serving: library (SDPA, float mask) {lib_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"bound {b_ms:.4f} ms ({b_by}), 3xTF32 bound "
+        f"{tf32_bound(fwd_flop, fwd_bytes):.4f} ms")
     rows["fwd"] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms":
                    lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "tf32_bound_ms": tf32_bound(fwd_flop, fwd_bytes),
                    "max_abs_err": err, "shape": [B, S, E, H]}
     del q, k, v, bias, sq, sk, sv, smask
 
@@ -549,13 +579,16 @@ def timing_phase(fa, neg_inf) -> dict:
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             sq, sk, sv, attn_mask=smask))
     fwd_flop = 4.0 * B * S * S * E
-    b_ms, b_by = bound(fwd_flop, 4.0 * (4 * B * S * E + B * S * S
-                                        + 2 * B * H * S) + 4.0 * B)
+    fwd_bytes = 4.0 * (4 * B * S * E + B * S * S + 2 * B * H * S) + 4.0 * B
+    b_ms, b_by = bound(fwd_flop, fwd_bytes)
     log(f"timing K1 dropout: library (SDPA fwd, no dropout) {lib_ms:.4f} "
-        f"ms, bound {b_ms:.4f} ms ({b_by})")
+        f"ms, bound {b_ms:.4f} ms ({b_by}), 3xTF32 bound "
+        f"{tf32_bound(fwd_flop, fwd_bytes):.4f} ms")
     rows["fwd_dropout"] = {"ms": kernel_ms, "plain_ms": plain_ms,
                            "library_ms": lib_ms, "bound_ms": b_ms,
-                           "bound_by": b_by, "max_abs_err": err,
+                           "bound_by": b_by,
+                           "tf32_bound_ms": tf32_bound(fwd_flop, fwd_bytes),
+                           "max_abs_err": err,
                            "shape": [B, S, E, H], "rate": rate}
 
     dout = torch.randn((B, S, E), generator=gen, device="cuda")
@@ -568,6 +601,11 @@ def timing_phase(fa, neg_inf) -> dict:
     diffs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
     err = max(d / max(1.0, float(r.abs().max())) for d, r in zip(diffs, ref))
     check(err <= GRAD_TOL, f"training shape, K2: rel max|diff| {err:.3e}")
+    again = fa.fused_attention_bwd(q, k, v, bias, dout, stats, H, seeds, rate)
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"K2 at [{B},{S},{E}]: a second launch on the same inputs gives "
+        f"equal dq, dk, dv: {repeat}")
+    check(repeat, "K2: two launches on the same inputs differ")
     kernel_ms, plain_ms = in_turns(
         lambda: torch.autograd.grad(plain_out, (qg, kg, vg), dout,
                                     retain_graph=True),
@@ -583,15 +621,73 @@ def timing_phase(fa, neg_inf) -> dict:
         lib_out, (sq, sk, sv), lib_dout, retain_graph=True))
     # Five [Sq,Sk,D] contractions a head (S and dO·Vᵀ rebuilt, dV, dQ,
     # dK); q, k, v, dO, bias, stats and seeds read, dq, dk, dv written.
-    b_ms, b_by = bound(10.0 * B * S * S * E,
-                       4.0 * (7 * B * S * E + B * S * S + 2 * B * H * S)
-                       + 4.0 * B)
+    bwd_flop = 10.0 * B * S * S * E
+    bwd_bytes = 4.0 * (7 * B * S * E + B * S * S + 2 * B * H * S) + 4.0 * B
+    b_ms, b_by = bound(bwd_flop, bwd_bytes)
     log(f"timing K2: library (SDPA backward, no dropout) {lib_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"bound {b_ms:.4f} ms ({b_by}), 3xTF32 bound "
+        f"{tf32_bound(bwd_flop, bwd_bytes):.4f} ms")
     rows["bwd"] = {"ms": kernel_ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "tf32_bound_ms": tf32_bound(bwd_flop, bwd_bytes),
                    "max_abs_err": max(diffs), "max_rel_err": err,
                    "shape": [B, S, E, H], "rate": rate}
+    rows.update(decoder_timing(fa, k, v, seeds, rate, gen, neg_inf))
+    return rows
+
+
+def decoder_timing(fa, k, v, seeds, rate, gen, neg_inf) -> dict:
+    """K1 (dropout) and K2 at the decoder's cross attention of the fit:
+    one query row over the encoder's keys k/v [B,Sk,E] with a padding
+    bias, against their plain versions, in turns, with their bounds."""
+    B, Sk, E = k.shape
+    H, Sq = 8, 1
+    q, dout = (torch.randn((B, Sq, E), generator=gen, device="cuda")
+               for _ in range(2))
+    bias = make_bias("causal_padding", B, Sq, Sk, gen, neg_inf)
+    keep = fa.dropout_keep_mask(seeds, H, Sq, Sk, rate)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    plain_out = fa.fused_attention_reference(qg, kg, vg, bias, H, keep, rate)
+    ref = torch.autograd.grad(plain_out, (qg, kg, vg), dout,
+                              retain_graph=True)
+    out, stats = fa.fused_attention_fwd(q, k, v, bias, H, seeds, rate,
+                                        return_stats=True)
+    got = fa.fused_attention_bwd(q, k, v, bias, dout, stats, H, seeds, rate)
+    fwd_err = float((out - plain_out.detach()).abs().max())
+    diffs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+    bwd_err = max(d / max(1.0, float(r.abs().max()))
+                  for d, r in zip(diffs, ref))
+    check(fwd_err <= KERNEL_TOL and bwd_err <= GRAD_TOL,
+          f"decoder shape: K1 {fwd_err:.3e}, K2 rel {bwd_err:.3e}")
+    label = f"dropout {rate} q [{B},{Sq},{E}] k/v [{B},{Sk},{E}] H={H}"
+    fwd_ms, fwd_plain = in_turns(
+        lambda: fa.fused_attention_reference(
+            q, k, v, bias, H, fa.dropout_keep_mask(seeds, H, Sq, Sk, rate),
+            rate),
+        lambda: fa.fused_attention_fwd(q, k, v, bias, H, seeds, rate,
+                                       return_stats=True),
+        f"K1 decoder cross, {label}")
+    bwd_ms, bwd_plain = in_turns(
+        lambda: torch.autograd.grad(plain_out, (qg, kg, vg), dout,
+                                    retain_graph=True),
+        lambda: fa.fused_attention_bwd(q, k, v, bias, dout, stats, H, seeds,
+                                       rate),
+        f"K2 decoder cross, {label}")
+    rows = {}
+    for name, ms, plain_ms, flop, nbytes, err in (
+            ("fwd_decoder", fwd_ms, fwd_plain, 4.0 * B * Sq * Sk * E,
+             4.0 * (2 * B * Sq * E + 2 * B * Sk * E + B * Sq * Sk
+                    + 2 * B * H * Sq) + 4.0 * B, fwd_err),
+            ("bwd_decoder", bwd_ms, bwd_plain, 10.0 * B * Sq * Sk * E,
+             4.0 * (3 * B * Sq * E + 4 * B * Sk * E + B * Sq * Sk
+                    + 2 * B * H * Sq) + 4.0 * B, max(diffs))):
+        b_ms, b_by = bound(flop, nbytes)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "tf32_bound_ms": tf32_bound(flop, nbytes),
+                      "max_abs_err": err, "shape": [B, Sq, Sk, E, H],
+                      "rate": rate}
+        log(f"timing {name}: bound {b_ms:.4f} ms ({b_by})")
     return rows
 
 
@@ -751,9 +847,8 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def _device_profile(trainer, data, task) -> tuple[collections.Counter,
-                                                   float, float]:
-    """(device ms by kind of kernel, busy ms, span ms) of one fit, from
+def _device_events(trainer, data, task) -> list:
+    """The device events (kernels, memcpys, memsets) of one fit, from
     torch.profiler's CUDA trace."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -765,16 +860,39 @@ def _device_profile(trainer, data, task) -> tuple[collections.Counter,
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    dev = [e for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-           and "dur" in e]
-    check(any(e["cat"] == "kernel" for e in dev),
-          "profile: the trace holds no device kernels")
+    return [e for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and "dur" in e]
+
+
+def training_profile(trainer, data, task, per_step: int) -> dict:
+    """Device time per train step by kind of kernel, and the device's
+    busy share, inside one profiled one-cell fit of `task` (a fit of it
+    first warms up). The window is PROFILE_STEPS whole steady steps:
+    from the K1 launch that opens the attention of step PROFILE_SKIP to
+    the one PROFILE_STEPS steps later, found as every `per_step`-th K1
+    launch (the eval batch's come after every train step). Kernels are
+    summed by kind; memcpy and memset apart; busy is the union of device
+    intervals in the window over its length."""
+    trainer.fit(data, task)
+    torch.cuda.synchronize()
+    dev = _device_events(trainer, data, task)
+    marks = sorted(e["ts"] for e in dev if e["cat"] == "kernel"
+                   and re.search(STEP_MARK, e["name"]))
+    need = per_step * (PROFILE_SKIP + PROFILE_STEPS) + 1
+    check(len(marks) >= need, f"profile: {len(marks)} K1 launches in the "
+          f"trace, want at least {need}")
+    t0 = marks[per_step * PROFILE_SKIP]
+    t1 = marks[per_step * (PROFILE_SKIP + PROFILE_STEPS)]
+    inside = [e for e in dev if t0 <= e["ts"] < t1]
     kinds = collections.Counter()
-    for e in dev:
-        kind = kind_of(e["name"]) if e["cat"] == "kernel" else e["cat"]
-        kinds[kind] += e["dur"] / 1e3
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    copies = collections.Counter()
+    for e in inside:
+        if e["cat"] == "kernel":
+            kinds[kind_of(e["name"])] += e["dur"] / 1e3 / PROFILE_STEPS
+        else:
+            copies[e["cat"]] += e["dur"] / 1e3 / PROFILE_STEPS
+    spans = sorted((e["ts"], min(e["ts"] + e["dur"], t1)) for e in inside)
     busy, (lo0, hi0) = 0.0, spans[0]
     for lo, hi in spans[1:]:
         if lo > hi0:
@@ -782,49 +900,35 @@ def _device_profile(trainer, data, task) -> tuple[collections.Counter,
         else:
             hi0 = max(hi0, hi)
     busy += hi0 - lo0
-    return kinds, busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3
-
-
-def training_profile(trainer, data, task, longer) -> dict:
-    """Device time by kind of kernel per train step, and the device's
-    busy share over the steps: the difference between a one-cell,
-    one-epoch fit of `longer` (2 x PROFILE_STEPS steps) and one of `task`
-    (PROFILE_STEPS steps), the same model set-up and eval batch in both,
-    so the difference is PROFILE_STEPS steady train steps. A fit of
-    `task` first warms up."""
-    trainer.fit(data, task)
-    torch.cuda.synchronize()
-    short_k, short_busy, short_span = _device_profile(trainer, data, task)
-    long_k, long_busy, long_span = _device_profile(trainer, data, longer)
-    kinds = collections.Counter({k: (long_k[k] - short_k[k]) / PROFILE_STEPS
-                                 for k in long_k})
+    busy_share = busy / (t1 - t0)
+    step_span = (t1 - t0) / 1e3 / PROFILE_STEPS
     total = sum(kinds.values())
-    busy_share = (long_busy - short_busy) / (long_span - short_span)
-    step_span = (long_span - short_span) / PROFILE_STEPS
-    log(f"training profile: {total:.3f} ms of device work per train step "
-        f"of one cell (difference of a {2 * PROFILE_STEPS}- and a "
-        f"{PROFILE_STEPS}-step fit), device busy {100 * busy_share:.1f}% "
-        f"of the {step_span:.3f} ms per step")
+    log(f"training profile: {total:.3f} ms of kernels per train step of one "
+        f"cell (steps {PROFILE_SKIP}-{PROFILE_SKIP + PROFILE_STEPS} of one "
+        f"fit), device busy {100 * busy_share:.1f}% of the {step_span:.3f} "
+        f"ms per step; memcpy {copies['gpu_memcpy']:.3f}, memset "
+        f"{copies['gpu_memset']:.3f} ms/step")
     for kind, ms in kinds.most_common():
         log(f"training profile: {kind:34s} {ms:8.3f} ms/step "
             f"{100 * ms / total:5.1f}%")
+    check(0.0 < busy_share <= 1.0, f"profile: busy share {busy_share:.4f} "
+          "outside (0, 1]")
     return {"ms_per_step": total, "busy_share": busy_share,
-            "span_ms_per_step": step_span, "kinds": dict(kinds)}
+            "span_ms_per_step": step_span, "kinds": dict(kinds),
+            "copies_ms_per_step": dict(copies)}
 
 
-def training_phase(fa, fab, corpus: str) -> dict:
+def training_setup(corpus: str):
+    """The corpus as the trainer takes it, its monitor split, the target
+    vocabulary and a factory of full-width Transformers, from whatever
+    `sign_language_nlp_torch` is first on sys.path."""
     from sign_language_nlp_torch.data import AslDataset
     from sign_language_nlp_torch.models.registry import build_model
     from sign_language_nlp_torch.search.kfold import train_valid_split
-    from sign_language_nlp_torch.training.engine import (PopulationTrainer,
-                                                         TrainConfig,
-                                                         TrainTask,
-                                                         cell_generators)
 
     ds = AslDataset.build({"dataset_dir": corpus, "fields": FIELDS,
                            "samples_min_freq": 2})
     src_v, tgt_v = ds.src_vocab, ds.tgt_vocab
-    data = (ds.tokens, ds.lengths, ds.labels_idx)
     train_rows, valid_rows = train_valid_split(ds.labels_idx, 5)
 
     def factory(gen):
@@ -832,6 +936,37 @@ def training_phase(fa, fab, corpus: str) -> dict:
                            src_v.pad_index, tgt_v.pad_index,
                            model_args=FULL_WIDTH, generator=gen)
 
+    return ((ds.tokens, ds.lengths, ds.labels_idx), train_rows, valid_rows,
+            tgt_v, len(src_v), factory)
+
+
+def profile_cell(data, train_rows, valid_rows, tgt_v, factory) -> dict:
+    """`training_profile` of one cell (the first of CELLS) with the grid's
+    training settings, over PROFILE_SKIP + PROFILE_STEPS + 2 train steps
+    and one eval batch."""
+    from sign_language_nlp_torch.training.engine import (PopulationTrainer,
+                                                         TrainConfig,
+                                                         TrainTask)
+
+    cfg = TrainConfig(max_epochs=1, verbose=0, device="cuda",
+                      **TRAIN_SETTINGS)
+    n = (PROFILE_SKIP + PROFILE_STEPS + 2) * cfg.batch_size
+    task = TrainTask(train_rows=[train_rows[:n]], valid_rows=[valid_rows[:50]],
+                     lr=np.float32([CELLS[0][0]]),
+                     dropout=np.float32([CELLS[0][1]]))
+    trainer = PopulationTrainer(factory, tgt_v.pad_index, len(tgt_v), cfg)
+    return training_profile(trainer, data, task,
+                            3 * FULL_WIDTH["num_layers"])
+
+
+def training_phase(fa, fab, corpus: str) -> dict:
+    from sign_language_nlp_torch.training.engine import (PopulationTrainer,
+                                                         TrainConfig,
+                                                         TrainTask,
+                                                         cell_generators)
+
+    data, train_rows, valid_rows, tgt_v, n_src, factory = training_setup(
+        corpus)
     P = len(CELLS)
     cfg = TrainConfig(max_epochs=2, verbose=2, device="cuda",
                       **TRAIN_SETTINGS)
@@ -840,8 +975,8 @@ def training_phase(fa, fab, corpus: str) -> dict:
                      dropout=np.asarray([c[1] for c in CELLS], np.float32))
     trainer = PopulationTrainer(factory, tgt_v.pad_index, len(tgt_v), cfg)
     log(f"training: {len(train_rows)} train / {len(valid_rows)} valid rows, "
-        f"S {ds.tokens.shape[1]}, {P} cells {CELLS} (lr, dropout), "
-        f"src vocab {len(src_v)}, classes {len(tgt_v)}")
+        f"S {data[0].shape[1]}, {P} cells {CELLS} (lr, dropout), "
+        f"src vocab {n_src}, classes {len(tgt_v)}")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -899,16 +1034,7 @@ def training_phase(fa, fab, corpus: str) -> dict:
           f"{worst_loss:.3e}")
     check(worst_norm <= STEP_NORM_RTOL, f"first-step grad norms differ by "
           f"{worst_norm:.3e} relative")
-    profile = training_profile(
-        PopulationTrainer(factory, tgt_v.pad_index, len(tgt_v),
-                          TrainConfig(**{**cfg.__dict__, "max_epochs": 1,
-                                         "verbose": 0})),
-        data, *(TrainTask(train_rows=[train_rows[:n * PROFILE_STEPS
-                                              * cfg.batch_size]],
-                          valid_rows=[valid_rows[:50]],
-                          lr=np.float32([CELLS[0][0]]),
-                          dropout=np.float32([CELLS[0][1]]))
-                for n in (1, 2)))
+    profile = profile_cell(data, train_rows, valid_rows, tgt_v, factory)
     return {"k1": k1, "k1_dropout": k1_drop, "k2": k2, "k3": k3,
             "steps": steps,
             "eval_batches": evals, "wall_s": wall, "peak_bytes": peak,
@@ -966,7 +1092,8 @@ def main() -> int:
                 "replaces": f"sign_language_nlp_tpu/ops/{replaces}",
                 "launches": launches, "max_abs_err": err,
                 **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms", "shape")}}
+                                       "bound_by", "library_ms", "shape",
+                                       "tf32_bound_ms") if k in row}}
 
     log(json.dumps({"training": training}))
     log(json.dumps({"kernels": [
@@ -983,14 +1110,16 @@ def main() -> int:
                  times["fwd_dropout"],
                  max(worst_drop, times["fwd_dropout"]["max_abs_err"])),
          "launches_by_path": {"training": training["k1_dropout"]},
-         "rate": times["fwd_dropout"]["rate"]},
+         "rate": times["fwd_dropout"]["rate"],
+         "decoder": times["fwd_decoder"]},
         {**entry("fused_attention_bwd", "fused_attention_bwd.cu",
                  "pallas_attention_train.py:139", training["k2"],
                  times["bwd"],
                  max(worst_grad_abs, times["bwd"]["max_abs_err"])),
          "launches_by_path": {"training": training["k2"]},
          "rate": times["bwd"]["rate"],
-         "max_rel_err": max(worst_grad_rel, times["bwd"]["max_rel_err"])},
+         "max_rel_err": max(worst_grad_rel, times["bwd"]["max_rel_err"]),
+         "decoder": times["bwd_decoder"]},
         {**entry("fused_attention_bh", "fused_attention_bh.cu",
                  "pallas_attention.py:36",
                  serving["k3"] + training["k3"] + k3_path["launches"],

@@ -18,7 +18,8 @@ Re-implements the reference's `DatasetBuilder`
 
 The port's copy of sign_language_nlp_tpu/data/builder.py, the same code
 apart from the C++ fast path of `native/`, which is not ported yet:
-`use_native=True` raises.
+`use_native=True` logs that and takes the Python path, as the JAX
+builder does when its C++ loader is unavailable.
 """
 from __future__ import annotations
 
@@ -71,9 +72,9 @@ class DatasetBuilder:
         log("Loading dataset...")
 
         if use_native:
-            raise NotImplementedError(
-                "the C++ corpus loader (sign_language_nlp_tpu/native) is not "
-                "ported yet (ROADMAP queue 1 item 1); use_native=False")
+            # As the JAX builder does when its C++ loader cannot be built
+            # or loaded: the Python path, which gives the same corpus.
+            log("native loader unavailable; using Python path")
 
         if reuse_transient:
             name = get_hash({

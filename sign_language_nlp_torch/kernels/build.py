@@ -110,10 +110,15 @@ def fused_attention_library() -> ctypes.CDLL:
 def fused_attention_bwd_library() -> ctypes.CDLL:
     """K2, the fused attention backward (csrc/fused_attention_bwd.cu),
     built on first call and loaded once per process. Arguments: q, k, v,
-    bias, dout, stats, seeds (pointers), rate, dq, dk, dv, delta
-    (pointers), B, Sq, Sk, E, H, scale, stream."""
-    return _load("fused_attention_bwd.cu", "slt_fused_attention_bwd_f32",
-                 [_P] * 7 + [_F] + [_P] * 4 + [_I] * 5 + [_F, _P])
+    bias, dout, stats, seeds (pointers), rate, dq, dk, dv, and the
+    scratch pd, ds (pointers), B, Sq, Sk, E, H, scale, stream; the
+    scratch's size in floats from `slt_fused_attention_bwd_scratch_floats`
+    (B, Sq, Sk, H)."""
+    lib = _load("fused_attention_bwd.cu", "slt_fused_attention_bwd_f32",
+                [_P] * 7 + [_F] + [_P] * 5 + [_I] * 5 + [_F, _P])
+    lib.slt_fused_attention_bwd_scratch_floats.argtypes = [_I] * 4
+    lib.slt_fused_attention_bwd_scratch_floats.restype = ctypes.c_longlong
+    return lib
 
 
 @functools.lru_cache(maxsize=None)

@@ -209,11 +209,12 @@ class Transformer(nn.Module):
             src_bias = src_bias + causal_bias(S, device=dev)
         tgt_bias = padding_bias(tgt_tokens != self.tgt_pad_idx)  # 1×1 causal ≡ 0
         cross_bias = padding_bias(src_valid) if self.mask_memory else None
-        # Each bias becomes the kernel's [B,Sq,Sk] f32 once per forward;
-        # every layer then uses it as it is.
-        src_bias = head_shared_bias(src_bias, B, S, S, dev)
-        tgt_bias = head_shared_bias(tgt_bias, B, 1, 1, dev)
-        cross_bias = head_shared_bias(cross_bias, B, 1, S, dev)
+        # Each bias becomes the kernel's contiguous [B,Sq,Sk] f32 once per
+        # forward; every layer gets its [B,1,Sq,Sk] view, which the
+        # kernel path takes with no copy.
+        src_bias = head_shared_bias(src_bias, B, S, S, dev)[:, None]
+        tgt_bias = head_shared_bias(tgt_bias, B, 1, 1, dev)[:, None]
+        cross_bias = head_shared_bias(cross_bias, B, 1, S, dev)[:, None]
 
         h = src
         for layer in self.encoder_layers:

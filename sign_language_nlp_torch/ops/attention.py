@@ -2,15 +2,20 @@
 
 Counterpart of sign_language_nlp_tpu/ops/attention.py. Two paths:
 
-  * the fused CUDA kernels (ops/fused_attention.py), taken by backend
-    "auto" and "pallas" for CUDA tensors: K1 alone at inference, K1 and
-    K2 through an autograd function in training. The TPU package's
-    "auto" conditions (ops/attention.py:55-59) are about the TPU and do
-    not carry over; until the card's numbers set a policy, every CUDA
-    attention goes to the kernels;
+  * the fused CUDA kernels (ops/fused_attention.py), taken for CUDA
+    tensors by backend "pallas", and by "auto" for every input they take
+    (a head-shared bias and D <= 256): K1 alone at inference, K1 and K2
+    through an autograd function in training. The TPU package's "auto"
+    conditions (ops/attention.py:55-59) are about the TPU and do not
+    carry over. "pallas" raises on what the kernels do not take;
   * the plain version (the einsum path of ops/attention.py:75-92, with
-    matmul and softmax), taken by backend "xla" on any device, and by
-    every backend for CPU tensors.
+    matmul and softmax), taken by backend "xla" on any device, by every
+    backend for CPU tensors, and by "auto" for a per-head bias or D > 256
+    (`attention_route`).
+
+The bias is read by broadcasting rules against [B,H,Sq,Sk], as the JAX
+package reads it: fewer than 4 dimensions are right-aligned, so a 3-D
+[X,Sq,Sk] bias holds one slice per head.
 
 Attention dropout takes per-row int32 seeds, drawn by the caller from
 its generator on each call, as `_mha_pallas_train` draws them from the
@@ -25,11 +30,25 @@ from __future__ import annotations
 
 import torch
 
-from .fused_attention import (dropout_keep_mask, fused_attention,
-                              fused_attention_reference, head_shared_bias)
+from .fused_attention import (MAX_HEAD_DIM, bias_4d, dropout_keep_mask,
+                              fused_attention, fused_attention_reference,
+                              head_shared_bias)
 
 NEG_INF = -1e30  # finite mask value: keeps fully-masked rows NaN-free
 BACKENDS = ("auto", "pallas", "xla")
+
+
+def attention_route(backend: str, device_type: str, head_dim: int,
+                    per_head_bias: bool) -> str:
+    """"kernel" or "plain": where `multi_head_attention` sends an input,
+    from the backend, the tensors' device type, the head width and
+    whether the bias is per head. "pallas" always goes to the kernels,
+    which raise on what they do not take."""
+    if backend == "xla" or device_type == "cpu":
+        return "plain"
+    if backend == "auto" and (per_head_bias or head_dim > MAX_HEAD_DIM):
+        return "plain"
+    return "kernel"
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,22 +57,23 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          dropout_rate: float = 0.0,
                          seeds: torch.Tensor | None = None) -> torch.Tensor:
     """Attention over already-projected q [B,Sq,E] and k/v [B,Sk,E].
-    `bias` is additive: broadcastable to [B,1,Sq,Sk], or already the
-    kernel's contiguous [B,Sq,Sk] f32 (see `head_shared_bias`), which is
-    used as it is. The plain version also takes a per-head bias
-    broadcastable to [B,H,Sq,Sk], as the einsum path does; the kernels
-    refuse one. With `dropout_rate` > 0, inverted dropout on the
-    attention weights, keyed by int32 `seeds` [B]. Returns [B,Sq,E]."""
+    `bias` is additive and broadcastable to [B,H,Sq,Sk] (`bias_4d`). A
+    [B,1,Sq,Sk] view of the kernels' contiguous [B,Sq,Sk] f32 bias is
+    used with no copy (see `head_shared_bias`). With `dropout_rate` > 0,
+    inverted dropout on the attention weights, keyed by int32 `seeds`
+    [B]. Returns [B,Sq,E]."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     if dropout_rate and seeds is None:
         raise ValueError("attention dropout needs per-row seeds [B]")
     if q.shape[-1] % num_heads:
         raise ValueError("embed dim must divide num_heads")
-    B, Sq, _ = q.shape
+    B, Sq, E = q.shape
     Sk = k.shape[1]
-    if backend == "xla" or q.device.type == "cpu":
-        per_head = bias is not None and bias.dim() == 4 and bias.shape[1] != 1
+    bias = None if bias is None else bias_4d(bias)
+    per_head = bias is not None and bias.shape[1] != 1
+    if attention_route(backend, q.device.type, E // num_heads,
+                       per_head) == "plain":
         keep = (dropout_keep_mask(seeds, num_heads, Sq, Sk, dropout_rate)
                 if dropout_rate else None)
         return fused_attention_reference(

@@ -9,11 +9,12 @@ and of the model-layout wrapper `multi_head_attention_pallas`
 
 The kernels (csrc/fused_attention_fwd.cu, csrc/fused_attention_bwd.cu)
 take q [B,Sq,E] and k/v [B,Sk,E] in model layout and a head-shared bias
-[B,Sq,Sk] f32, and read each head at column offset h*D, so no head split
-or merge copy touches device memory. On the H100 they are bound by their
-f32 inner loops over shared-memory tiles, not by device-memory bytes:
-they never materialise the [B,H,Sq,Sk] scores that the plain version
-writes and reads back. Their designs are in the sources' headers.
+[B,Sq,Sk] f32, any head width D <= 256, and read each head at column
+offset h*D, so no head split or merge copy touches device memory. Their
+products run on the tensor cores in 3xTF32, which keeps f32 accuracy.
+K1 never materialises the [B,H,Sq,Sk] scores; K2 keeps two such terms
+in scratch that its wrapper allocates. Their designs are in the
+sources' headers.
 
 Dropout. The TPU kernels draw the keep-mask from the TPU's generator
 seeded per batch row; here it is a stateless hash of (seed_b, h, i, j)
@@ -29,26 +30,38 @@ import math
 import numpy as np
 import torch
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_HEAD_DIM = 256  # the kernels pad D to 32, 64, 128 or 256
 _M32 = 0xFFFFFFFF
+
+
+def bias_4d(bias: torch.Tensor) -> torch.Tensor:
+    """`bias` as broadcasting reads it against [B, H, Sq, Sk]: fewer than
+    4 dimensions are right-aligned, so [X,Sq,Sk] is [1,X,Sq,Sk], one
+    slice per head (sign_language_nlp_tpu/ops/attention.py:37, 82-83).
+    A view, never a copy."""
+    if bias.dim() > 4:
+        raise ValueError(f"bias {tuple(bias.shape)}: at most 4 dimensions "
+                         "([B,H,Sq,Sk])")
+    return bias[(None,) * (4 - bias.dim())]
 
 
 def head_shared_bias(bias: torch.Tensor | None, B: int, Sq: int,
                      Sk: int, device: torch.device) -> torch.Tensor:
-    """An additive bias broadcastable to [B, 1, Sq, Sk] (the framework's
-    masks are per row, never per head) → contiguous [B, Sq, Sk] f32.
-    `None` becomes zeros. A bias that is already that tensor comes back
-    as it is, with no copy, so a caller can build it once per forward
-    and share it across layers."""
+    """An additive bias broadcastable to [B, H, Sq, Sk] whose head
+    dimension is 1 (the framework's masks are per row, never per head),
+    read by broadcasting rules (`bias_4d`) → contiguous [B, Sq, Sk] f32,
+    the kernels' bias. `None` becomes zeros. A [B,1,Sq,Sk] view of a
+    contiguous f32 [B,Sq,Sk] tensor comes back as that tensor, with no
+    copy, so a caller can build it once per forward and share it across
+    layers."""
     if bias is None:
         return torch.zeros((B, Sq, Sk), dtype=torch.float32, device=device)
-    if bias.dim() == 4:
-        if bias.shape[1] != 1:
-            raise ValueError(f"bias {tuple(bias.shape)} is per head; the "
-                             "fused kernel takes a head-shared bias "
-                             "(backend=\"xla\" takes a per-head one)")
-        bias = bias[:, 0]
-    return (bias.to(torch.float32).expand(B, Sq, Sk).contiguous())
+    bias = bias_4d(bias)
+    if bias.shape[1] != 1:
+        raise ValueError(f"bias {tuple(bias.shape)} is per head; the "
+                         "fused kernel takes a head-shared bias "
+                         "(backend=\"xla\" takes a per-head one)")
+    return bias[:, 0].to(torch.float32).expand(B, Sq, Sk).contiguous()
 
 
 # --- the dropout keep-mask ------------------------------------------------
@@ -106,8 +119,9 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
     """Plain PyTorch version of the kernels: the einsum path of
     sign_language_nlp_tpu/ops/attention.py:75-92 written with matmul and
     softmax, with the kernels' dropout when `keep` ([B,H,Sq,Sk] bool,
-    from `dropout_keep_mask`) is given. q [B,Sq,E], k/v [B,Sk,E], bias
-    head-shared [B,Sq,Sk] or 4-D broadcastable to [B,H,Sq,Sk] (a per-head
+    from `dropout_keep_mask`) is given. q [B,Sq,E], k/v [B,Sk,E], and
+    the bias as the callers pass it: the kernels' head-shared [B,Sq,Sk]
+    (exactly that shape), or 4-D broadcastable to [B,H,Sq,Sk] (a per-head
     bias, which the einsum path takes and the kernels do not) → [B,Sq,E]
     in q's dtype; scores and softmax in f32. Its backward is PyTorch
     autograd."""
@@ -118,7 +132,15 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
     kh = k.reshape(B, Sk, num_heads, D).transpose(1, 2).float()
     vh = v.reshape(B, Sk, num_heads, D).transpose(1, 2)
     scores = torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / math.sqrt(D))
-    bias = bias[:, None] if bias.dim() == 3 else bias
+    if bias.dim() == 3:
+        if tuple(bias.shape) != (B, Sq, Sk):
+            raise ValueError(f"a 3-D bias is the kernels' head-shared "
+                             f"{(B, Sq, Sk)}, got {tuple(bias.shape)}; "
+                             "pass a 4-D [B|1,H|1,Sq,Sk] bias otherwise")
+        bias = bias[:, None]
+    elif bias.dim() != 4:
+        raise ValueError(f"bias {tuple(bias.shape)}: expected [B,Sq,Sk] or "
+                         "4-D [B|1,H|1,Sq,Sk]")
     weights = torch.softmax(scores + bias.float(), dim=-1)
     if keep is not None:
         weights = torch.where(keep, weights * dropout_inv(rate), 0.0)
@@ -154,9 +176,9 @@ def _check_inputs(q, k, v, bias, num_heads, seeds=None, rate=0.0,
         if t.shape != q.shape:
             raise ValueError(f"{name} {tuple(t.shape)}, expected "
                              f"{tuple(q.shape)}")
-    if E % num_heads or E // num_heads not in SUPPORTED_HEAD_DIMS:
+    if E % num_heads or E // num_heads > MAX_HEAD_DIM:
         raise ValueError(f"E={E}, num_heads={num_heads}: head width must "
-                         f"be one of {SUPPORTED_HEAD_DIMS}")
+                         f"divide E and be at most {MAX_HEAD_DIM}")
     if B == 0 or Sq == 0 or Sk == 0 or B > 65535 or num_heads > 65535:
         raise ValueError(f"B={B}, Sq={Sq}, Sk={Sk}, H={num_heads}: empty "
                          "or beyond the launch grid")
@@ -249,17 +271,19 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty((B, num_heads, Sq), dtype=torch.float32,
-                        device=q.device)
+    # The [Sq,Sk] terms between K2's two kernels, in one allocation: P
+    # (then P_d) and dP (then dS), each [B,H,Sq,Sk rounded up to 64].
+    n = lib.slt_fused_attention_bwd_scratch_floats(B, Sq, Sk, num_heads)
+    scratch = torch.empty((2 * n,), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.slt_fused_attention_bwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             dout.data_ptr(), stats.data_ptr(),
             seeds.data_ptr() if rate > 0.0 else None, rate,
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-            B, Sq, Sk, E, num_heads, 1.0 / math.sqrt(E // num_heads),
-            stream)
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+            scratch.data_ptr() + 4 * n, B, Sq, Sk, E, num_heads,
+            1.0 / math.sqrt(E // num_heads), stream)
     _raise_on(lib, rc, "fused attention backward")
     fused_attention_bwd.launches += 1
     return dq, dk, dv

@@ -115,18 +115,24 @@ def test_per_head_bias_matches_jax(backend):
 
 @pytest.mark.parametrize("backend", ["auto", "pallas"])
 def test_per_head_bias_refused_on_the_kernel_path(backend):
-    """Off the CPU, "auto" and "pallas" go to the kernels, which take a
-    head-shared bias only: a per-head one raises before any launch and
-    names the backend that takes it, with no silent change of path. A
-    meta tensor stands in for a CUDA one, which this build of torch may
-    not make; the checks come before the device, so the same happens on
-    the card."""
+    """Off the CPU the kernels take a head-shared bias only. "pallas"
+    goes to them whatever the bias, so a per-head one raises before any
+    launch and names the backend that takes it; "auto" sends a per-head
+    bias to the plain version instead. A head-shared bias goes to the
+    kernel path under both. A meta tensor stands in for a CUDA one,
+    which this build of torch may not make; the checks come before the
+    device, so the same happens on the card."""
     q = torch.empty(B, 4, E, device="meta")
     per_head = torch.zeros(B, H, 4, 4, device="meta")
     before = fused_attention_fwd.launches
-    with pytest.raises(ValueError, match='per head.*backend="xla"'):
-        att.multi_head_attention(q, q, q, per_head, num_heads=H,
-                                 backend=backend)
+    if backend == "pallas":
+        with pytest.raises(ValueError, match='per head.*backend="xla"'):
+            att.multi_head_attention(q, q, q, per_head, num_heads=H,
+                                     backend=backend)
+    else:
+        out = att.multi_head_attention(q, q, q, per_head, num_heads=H,
+                                       backend=backend)
+        assert out.shape == q.shape
     with pytest.raises(ValueError, match="CUDA device"):  # the kernel path
         att.multi_head_attention(q, q, q, per_head[:, :1], num_heads=H,
                                  backend=backend)
@@ -134,6 +140,63 @@ def test_per_head_bias_refused_on_the_kernel_path(backend):
     out = att.multi_head_attention(q, q, q, per_head, num_heads=H,
                                    backend="xla")
     assert out.shape == q.shape
+
+
+@pytest.mark.parametrize("backend", ["xla", "auto", "pallas"])
+def test_3d_bias_is_per_head_as_in_jax(backend):
+    """A 3-D bias [H,Sq,Sk] broadcasts to [1,H,Sq,Sk], one slice per
+    head, as in the JAX package; with B == H it must not be read as one
+    slice per batch row. On CPU tensors every backend takes the plain
+    version."""
+    Bh, Eh, S = 4, 16, 5  # B = H = 4, D 4
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.normal(size=(Bh, S, Eh)).astype(np.float32)
+               for _ in range(3))
+    bias = rng.normal(size=(Bh, S, S)).astype(np.float32)
+    bias[2, :, -2:] = jax_att.NEG_INF
+    want = np.asarray(jax_att.multi_head_attention(
+        q, k, v, bias, num_heads=Bh, backend="xla"))
+    got = att.multi_head_attention(*_t(q, k, v, bias), num_heads=Bh,
+                                   backend=backend).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def _meta(*shape):
+    return torch.empty(*shape, device="meta")
+
+
+@pytest.mark.parametrize("case", ["D8", "D12", "D256", "per_head", "D320"])
+def test_auto_on_cuda_routes_to_kernels_where_they_take_the_input(case):
+    """"auto" on CUDA goes to the kernels for every input they take (any
+    D <= 256, a head-shared bias) and to the plain version otherwise;
+    "pallas" goes to the kernels always. The choice is a pure function of
+    shapes and device type, so it is asked here with "cuda" itself, and
+    shown through the dispatch with meta tensors standing in for CUDA
+    ones: the kernel path raises at the device check, past every shape
+    check, and the plain path returns."""
+    E_, H_, per_head = {"D8": (32, 4, False), "D12": (48, 4, False),
+                        "D256": (512, 2, False), "per_head": (64, 4, True),
+                        "D320": (640, 2, False)}[case]
+    plain = per_head or E_ // H_ > 256
+    assert att.attention_route("auto", "cuda", E_ // H_, per_head) == (
+        "plain" if plain else "kernel")
+    assert att.attention_route("pallas", "cuda", E_ // H_,
+                               per_head) == "kernel"
+    assert att.attention_route("xla", "cuda", E_ // H_, per_head) == "plain"
+    assert att.attention_route("auto", "cpu", E_ // H_, per_head) == "plain"
+    q = _meta(2, 3, E_)
+    bias = _meta(2, H_ if per_head else 1, 3, 3)
+    before = fused_attention_fwd.launches
+    if plain:
+        out = att.multi_head_attention(q, q, q, bias, num_heads=H_)
+        assert out.shape == q.shape
+        with pytest.raises(ValueError, match="per head|head width"):
+            att.multi_head_attention(q, q, q, bias, num_heads=H_,
+                                     backend="pallas")
+    else:
+        with pytest.raises(ValueError, match="CUDA device"):
+            att.multi_head_attention(q, q, q, bias, num_heads=H_)
+    assert fused_attention_fwd.launches == before
 
 
 def test_masks_match_jax():
@@ -163,19 +226,37 @@ def test_cpu_path_does_not_launch():
     q, k, v, bias = _t(*_inputs(4, 4, "zero"))
     before = fused_attention_fwd.launches
     att.multi_head_attention(q, k, v, None, num_heads=H, backend="auto")
-    att.multi_head_attention(q, k, v, bias, num_heads=H, backend="pallas")
+    att.multi_head_attention(q, k, v, bias[:, None], num_heads=H,
+                             backend="pallas")
     assert fused_attention_fwd.launches == before
 
 
 def test_head_shared_bias_is_used_as_it_is():
-    """A bias already in the kernel's [B,Sq,Sk] f32 layout is neither
-    copied nor read as per-head, and gives what its 4-D form gives."""
+    """The [B,1,Sq,Sk] view of a bias already in the kernel's [B,Sq,Sk]
+    f32 layout, as the Transformer passes it, is neither copied nor read
+    as per-head, and gives what a copy of it gives."""
     q, k, v, bias = _t(*_inputs(5, 5, "causal_padding", seed=2))
-    same = head_shared_bias(bias, B, 5, 5, q.device)
+    same = head_shared_bias(bias[:, None], B, 5, 5, q.device)
     assert same.data_ptr() == bias.data_ptr() and same.shape == bias.shape
-    got = att.multi_head_attention(q, k, v, bias, num_heads=H)
-    want = att.multi_head_attention(q, k, v, bias[:, None], num_heads=H)
+    got = att.multi_head_attention(q, k, v, bias[:, None], num_heads=H)
+    want = att.multi_head_attention(q, k, v, bias[:, None].clone(),
+                                    num_heads=H)
     assert torch.equal(got, want)
+
+
+def test_reference_takes_the_kernels_bias_or_a_4d_one():
+    """The plain version takes the bias as its callers pass it: the
+    kernels' head-shared [B,Sq,Sk] (the same as its [B,1,Sq,Sk] form) or
+    4-D; any other 3-D or a 2-D bias is refused, never guessed."""
+    q, k, v, bias = _t(*_inputs(5, 5, "causal_padding", seed=5))
+    got = fused_attention_reference(q, k, v, bias, H)
+    assert torch.equal(got, fused_attention_reference(q, k, v, bias[:, None],
+                                                      H))
+    for bad in (bias[:1], bias[0]):  # [1,Sq,Sk], [Sq,Sk]
+        with pytest.raises(ValueError, match="bias"):
+            fused_attention_reference(q, k, v, bad, H)
+    with pytest.raises(ValueError, match="at most 4"):
+        att.multi_head_attention(q, k, v, bias[None, None], num_heads=H)
 
 
 def test_dispatch_refusals():
@@ -202,8 +283,11 @@ def _case(kind):
         return (q, kt, v, bias, H), ValueError, "contiguous"
     if kind == "bias_shape":
         return (q, k, v, bias[:, :1], H), ValueError, "bias"
-    if kind == "head_width":
-        return (q, k, v, bias, 8), ValueError, "head width"  # D = 8
+    if kind == "head_width":  # D 320 > 256
+        wide = torch.zeros(B, 4, 640)
+        return (wide, wide[:, :1].expand(B, 6, 640).contiguous(),
+                wide[:, :1].expand(B, 6, 640).contiguous(), bias, 2), \
+            ValueError, "head width"
     raise AssertionError(kind)
 
 

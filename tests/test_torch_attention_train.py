@@ -112,8 +112,9 @@ def test_dropout_on_matches_same_mask_einsum(Sq, Sk, bias_kind, rate):
                                    err_msg=f"d{name}")
     # The dispatch's plain path draws the same mask from the same seeds:
     routed = att.multi_head_attention(
-        *(torch.from_numpy(a) for a in (q, k, v, bias)), num_heads=H,
-        backend="xla", dropout_rate=rate, seeds=seeds)
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        torch.from_numpy(bias)[:, None], num_heads=H, backend="xla",
+        dropout_rate=rate, seeds=seeds)
     np.testing.assert_array_equal(routed.numpy(), got)
 
 
@@ -203,7 +204,8 @@ def test_cpu_training_attention_takes_the_plain_path():
     for backend in ("auto", "pallas", "xla"):
         qt = torch.from_numpy(q).requires_grad_()
         out = att.multi_head_attention(qt, *(torch.from_numpy(a)
-                                             for a in (k, v, bias)),
+                                             for a in (k, v)),
+                                       torch.from_numpy(bias)[:, None],
                                        num_heads=H, backend=backend,
                                        dropout_rate=0.3, seeds=seeds)
         (dq,) = torch.autograd.grad(out, qt, torch.from_numpy(g))

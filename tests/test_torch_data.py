@@ -45,9 +45,15 @@ def test_vocab_from_itos_matches_jax(built_dataset):
     assert got.numericalize(tokens) == want.numericalize(tokens)
 
 
-def test_native_loader_is_refused(asl_corpus_dir):
-    with pytest.raises(NotImplementedError, match="native"):
-        DatasetBuilder().build(**_args(asl_corpus_dir), use_native=True)
+def test_native_loader_falls_back(asl_corpus_dir):
+    """`use_native=True` takes the Python path, as the JAX builder does
+    without its C++ loader, and gives the same corpus."""
+    want = DatasetBuilder().build(**_args(asl_corpus_dir), use_native=False)
+    got = DatasetBuilder().build(**_args(asl_corpus_dir), use_native=True)
+    for key in ("src", "tgt", "files"):
+        assert got[key] == want[key], key
+    for key in ("src_vocab", "tgt_vocab", "file_vocab"):
+        assert got[key].itos == want[key].itos, key
 
 
 def test_utils_io_round_trip(tmp_path):

@@ -1,5 +1,5 @@
 """The port stands alone: nothing under sign_language_nlp_torch/, and
-neither chip_smoke.py nor the port's GPU profile script, imports the
+neither chip_smoke.py nor the port's GPU scripts, imports the
 JAX package or a module that the card's machine does not have, at the
 top of a module or inside a function.
 
@@ -22,7 +22,9 @@ PORT = REPO / "sign_language_nlp_torch"
 FORBIDDEN = ("sign_language_nlp_tpu", "jax", "flax", "yaml", "msgpack",
              "sklearn", "pandas")
 SCANNED = sorted([*PORT.rglob("*.py"), REPO / "chip_smoke.py",
-                  REPO / "scripts" / "profile_torch_serving.py"])
+                  REPO / "scripts" / "profile_torch_serving.py",
+                  REPO / "scripts" / "time_attention_kernels.py",
+                  REPO / "scripts" / "profile_torch_training.py"])
 
 
 def _imported_roots(path: pathlib.Path) -> set:
